@@ -3,23 +3,32 @@
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-then drives the port's main path — ``compile_stencil(...).apply`` and
-``.run`` — for the four 2-D Table-2 stencils at their Table-2 domains
-(8352², 8064², 8784², 8640²), f32, at the EBISU depth of Table 3
-(t = 12, 8, 6, 4), plus one periodic and one f64 program of j2d5pt.
-The kernel's launch count is zeroed just before that run and read just
-after it, and must show every launch the sweep schedules call for.
+It builds the port's two CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, started together), then drives the port's main
+path — ``compile_stencil(...).apply`` and ``.run`` — in two counted runs:
+
+* 2-D (``stencil2d``): the four 2-D Table-2 stencils at their Table-2
+  domains (8352², 8064², 8784², 8640²), f32, at the EBISU depth of
+  Table 3 (t = 12, 8, 6, 4), plus one periodic and one f64 program of
+  j2d5pt;
+* 3-D (``stencil3d``): the five 3-D Table-2 stencils at the paper's
+  2560×288×384, f32, at t = 8, 5, 6, 5, 6, plus one periodic and one f64
+  program of j3d7pt, and one ``mode="stream"`` apply of j2d5pt at 8352²
+  (the 2-D field streamed through the 3-D kernel as 8352×1×8352).
+
+Both kernels' launch counts are zeroed just before each run and read
+just after it, and must show every launch the sweep schedules call for.
 
 Then, outside the counted run, it holds every result against the port's
 plain PyTorch oracle on the card (max |err| < 1e-4 in f32, < 1e-10 in
-f64), holds the kernel against its plain version on the main path's own
-padded inputs, and times with CUDA events (warm-up, then the median of
-20 launches): the kernel's ms per sweep (f32, and f64 as the paper
-ran), the plain version's, ``.run``'s end to end, and a
-yardstick, ``library_ms`` = ``t`` chained ``torch.nn.functional.conv2d``
-calls with zero padding and TF32 off (the port never calls it).  The
-bound of a sweep is the larger of its bytes (the ``height × width``
+f64), holds each kernel against its plain version on the main path's own
+padded inputs (the 3-D kernel also against a second launch, bit for
+bit), and times with CUDA events (warm-up, then the median of 20
+launches): the kernel's ms per sweep (f32, and f64 as the paper ran),
+the plain version's, ``.run``'s end to end, and a yardstick,
+``library_ms`` = ``t`` chained ``torch.nn.functional.conv2d`` (3-D:
+``conv3d``) calls with zero padding and TF32 off (the port never calls
+it).  The bound of a sweep is the larger of its bytes (the ``height × width``
 domain read once, the padded layout the next sweep reads written once;
 the kernel reads no padded cell) over 3.35 TB/s and its
 ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32 (34 fp64), the H100 SXM
@@ -40,11 +49,14 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REPLACES = "src/repro/kernels/stencil2d.py:54"
 SOURCE = "src/repro_torch/kernels/csrc/stencil2d.cu"
+REPLACES_3D = "src/repro/kernels/stencil3d.py:134"
+SOURCE_3D = "src/repro_torch/kernels/csrc/stencil3d.cu"
 
 
 def check(ok: bool, what: str) -> None:
@@ -96,6 +108,7 @@ def main() -> int:
     from repro_torch.core.stencil_spec import TABLE3_DEPTHS, get
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
     from repro_torch.stencils.data import init_domain
 
     dev = torch.device("cuda", 0)
@@ -111,16 +124,20 @@ def main() -> int:
 
     # ---- build ---------------------------------------------------------
     t0 = time.perf_counter()
-    log = _build.build("stencil2d")
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc each
+        logs = dict(zip(_build.SOURCES, pool.map(_build.build,
+                                                 _build.SOURCES)))
     print(f"[build] {time.perf_counter() - t0:.2f}s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] stencil2d: {line.strip()}", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
-    # ---- the main path, counted -----------------------------------------
+    # ---- the 2-D main path, counted -------------------------------------
     names = ["j2d5pt", "j2d9pt", "j2d9pt-gol", "j2d25pt"]
     cases = {}
     st.ebisu2d_padded.launches = 0
+    st3.ebisu3d_padded.launches = 0
     for name in names:
         spec = get(name)
         t = TABLE3_DEPTHS[name]["ebisu"]
@@ -146,6 +163,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = st.ebisu2d_padded.launches
     print(f"[main path] stencil2d launches: {launches}", flush=True)
+    check(st3.ebisu3d_padded.launches == 0, "the 2-D path launched stencil3d")
     # apply = 1 sweep; run(2t+1) = sweeps of t, t, 1 — for every program
     for name, c in cases.items():
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
@@ -276,25 +294,247 @@ def main() -> int:
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
 
-    total = {k: sum(r[k] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    kernels = {"kernels": [{
-        "name": "stencil2d", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in rows)
-                     * 2 >= len(rows) else "operations"),
-        "library_ms": total["library_ms"],
-        "times_are": "sums of one sweep of each 2-D Table-2 stencil at its "
-                     "Table-2 domain and EBISU depth, f32",
-        "per_stencil": rows}]}
+    entry_2d = kernel_entry("stencil2d", SOURCE, REPLACES, launches,
+                            max_err, rows,
+                            "sums of one sweep of each 2-D Table-2 stencil "
+                            "at its Table-2 domain and EBISU depth, f32")
+    del cases, x5, x5d, y_per, y_d1, y_dT, buf, src
+    torch.cuda.empty_cache()
+
+    entry_3d = three_d(dev, held)
     print(f"[card] {smi_line()}", flush=True)
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"kernels": [entry_2d, entry_3d]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_entry(name, source, replaces, launches, max_err, rows,
+                 times_are, **extra) -> dict:
+    """One kernel's object of the ``kernels`` line: the per-stencil rows
+    and their sums."""
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": ("bytes" if sum(r["bound_by"] == "bytes" for r in rows)
+                     * 2 >= len(rows) else "operations"),
+        "library_ms": total["library_ms"], "times_are": times_are,
+        "per_stencil": rows, **extra}
+
+
+def three_d(dev, held) -> dict:
+    """The 3-D main path, counted; then its checks and timings,
+    uncounted.  Returns the ``stencil3d`` entry of the ``kernels`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.api import Boundary, compile_stencil
+    from repro_torch.core.roofline import H100
+    from repro_torch.core.stencil_spec import (TABLE3_DEPTHS, get,
+                                               lift_2d_to_3d)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.stencils.data import init_domain
+
+    names = ["j3d7pt", "j3d13pt", "j3d17pt", "j3d27pt", "poisson"]
+    cases = {}
+    st.ebisu2d_padded.launches = 0
+    st3.ebisu3d_padded.launches = 0
+    for name in names:
+        spec = get(name)
+        t = TABLE3_DEPTHS[name]["ebisu"]
+        before = st3.ebisu3d_padded.launches
+        t0 = time.perf_counter()
+        prog = compile_stencil(spec, spec.domain, t=t)
+        x = init_domain(spec, seed=0)
+        y1 = prog.apply(x)
+        yT = prog.run(x, 2 * t + 1)
+        torch.cuda.synchronize()
+        cases[name] = dict(prog=prog, x=x, y1=y1, yT=yT, t=t,
+                           launches=st3.ebisu3d_padded.launches - before,
+                           host_s=time.perf_counter() - t0)
+    j7 = get("j3d7pt")
+    x7 = cases["j3d7pt"]["x"]
+    y_per = compile_stencil(j7, j7.domain, t=8,
+                            boundary=Boundary.periodic()).run(x7, 17)
+    prog_d = compile_stencil(j7, j7.domain, t=8, dtype=torch.float64)
+    x7d = x7.double()
+    y_d1 = prog_d.apply(x7d)
+    y_dT = prog_d.run(x7d, 17)
+    j5 = get("j2d5pt")
+    prog_s = compile_stencil(j5, j5.domain, t=12, mode="stream")
+    x5 = init_domain(j5, seed=0)
+    before = st3.ebisu3d_padded.launches
+    y_s = prog_s.apply(x5)
+    stream_launches = st3.ebisu3d_padded.launches - before
+    torch.cuda.synchronize()
+    launches = st3.ebisu3d_padded.launches
+    print(f"[main path 3-D] stencil3d launches: {launches}", flush=True)
+    check(st.ebisu2d_padded.launches == 0, "the 3-D path launched stencil2d")
+    for name, c in cases.items():
+        check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
+    check(stream_launches == 1,
+          f"stream apply: {stream_launches} launches, not 1")
+    want = 4 * len(names) + 3 + 4 + 1
+    check(launches == want,
+          f"3-D path launched the kernel {launches} times, not {want}")
+
+    # ---- correctness, uncounted -----------------------------------------
+    max_err = 0.0
+
+    def kernel_vs_plain(spec, t, x, g, dtype, tol, what):
+        """The kernel twice (bit-identical) and its plain version, on the
+        main path's own padded input; returns the padded input."""
+        xp = torch.zeros(g["padded"], dtype=dtype, device=dev)
+        if x.dim() == 2:
+            xp[:x.shape[0], 0, :x.shape[1]] = x
+            shape = (x.shape[0], 1, x.shape[1])
+        else:
+            xp[:x.shape[0], :x.shape[1], :x.shape[2]] = x
+            shape = tuple(x.shape)
+        kw = dict(zip(("zdim", "ydim", "xdim"), shape))
+        zc, ty, tx = g["block"]
+        got = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+        again = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{what}: a second launch differs")
+        err = held(got, st3.ebisu3d_padded_plain(xp, spec, t, **kw), tol,
+                   f"{what} kernel vs plain sweep (repeat bit-identical)")
+        return xp, err
+
+    for name, c in cases.items():
+        spec, prog, x, t = get(name), c["prog"], c["x"], c["t"]
+        check(c["y1"].shape == x.shape and c["yT"].shape == x.shape,
+              f"{name}: output shape")
+        held(c["y1"], ref.reference(x, spec, t), 1e-4,
+             f"{name} apply(t={t}) vs oracle")
+        held(c["yT"], ref.reference(x, spec, 2 * t + 1), 1e-4,
+             f"{name} run({2 * t + 1}) vs oracle")
+        c["geometry"] = prog.geometry()
+        del c["yT"]
+    held(y_per, ref.reference(x7, j7, 17, boundary=Boundary.periodic()),
+         1e-4, "j3d7pt periodic run(17) vs oracle")
+    held(y_d1, ref.reference(x7d, j7, 8), 1e-10, "j3d7pt f64 apply(8)")
+    held(y_dT, ref.reference(x7d, j7, 17), 1e-10, "j3d7pt f64 run(17)")
+    del y_per, y_d1, y_dT
+    g = prog_d.geometry()
+    xpd, err = kernel_vs_plain(j7, 8, x7d, g, torch.float64, 1e-10,
+                               "j3d7pt f64")
+    max_err = max(max_err, err)
+    del xpd, x7d
+    held(y_s, ref.reference(x5, j5, 12), 1e-4,
+         "j2d5pt stream apply(12) vs oracle")
+    lifted = prog_s.geometry()
+    xps, err = kernel_vs_plain(lift_2d_to_3d(j5), 12, x5, lifted,
+                               torch.float32, 1e-4, "j2d5pt stream")
+    max_err = max(max_err, err)
+    torch.cuda.empty_cache()
+
+    # ---- timing, uncounted, one stencil at a time -----------------------
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def bound(cells, padded, t, flops_per_cell, itemsize, fp64=False):
+        nbytes = (cells + padded) * itemsize
+        flops = flops_per_cell * t * cells
+        t_bytes = nbytes / H100.b_gm
+        t_ops = flops / (H100.thr_cmp_fp64 if fp64 else H100.thr_cmp)
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations"), nbytes
+
+    rows = []
+    for name in names:
+        c = cases.pop(name)
+        spec, t, x, g = get(name), c["t"], c["x"], c["geometry"]
+        zc, ty, tx = g["block"]
+        cells = x.numel()
+        xp, err = kernel_vs_plain(spec, t, x, g, torch.float32, 1e-4, name)
+        max_err = max(max_err, err)
+        kw = dict(zip(("zdim", "ydim", "xdim"), x.shape))
+        out = torch.empty_like(xp)
+        kern_ms = median_ms(lambda: st3.ebisu3d_padded(
+            xp, spec, t, zc=zc, ty=ty, tx=tx, out=out, **kw), 20, 3)
+        plain_ms = median_ms(lambda: st3.ebisu3d_padded_plain(
+            xp, spec, t, **kw), 5, 1)
+        rad = spec.radius
+        w = torch.zeros((1, 1) + (2 * rad + 1,) * 3, device=dev)
+        for (dz, dy, dx), coef in spec.taps:
+            w[0, 0, dz + rad, dy + rad, dx + rad] = coef
+
+        def library(v=x[None, None]):
+            for _ in range(t):
+                v = F.conv3d(v, w, padding=rad)
+            return v
+
+        lib_ms = median_ms(library, 5, 1)
+        held(library()[0, 0], c["y1"], 1e-4, f"{name} conv3d yardstick")
+        del c["y1"]
+        run_ms = median_ms(lambda: c["prog"].run(x, 2 * t + 1), 5, 1)
+        b_s, b_by, nbytes = bound(cells, xp.numel(), t, spec.flops_per_cell,
+                                  4)
+        del xp, out
+        gd = compile_stencil(spec, spec.domain, t=t,
+                             dtype=torch.float64).geometry()
+        xpd = torch.zeros(gd["padded"], dtype=torch.float64, device=dev)
+        xpd[:x.shape[0], :x.shape[1], :x.shape[2]] = x
+        outd = torch.empty_like(xpd)
+        ms_f64 = median_ms(lambda: st3.ebisu3d_padded(
+            xpd, spec, t, zc=gd["block"][0], ty=gd["block"][1],
+            tx=gd["block"][2], out=outd, **kw), 20, 3)
+        b64, _, _ = bound(cells, xpd.numel(), t, spec.flops_per_cell, 8,
+                          fp64=True)
+        del xpd, outd, x
+        torch.cuda.empty_cache()
+        row = dict(stencil=name, t=t, domain=list(spec.domain),
+                   tile=[zc, ty, tx], grid=list(g["grid"]),
+                   padded=list(g["padded"]), smem_bytes=g["smem_bytes"],
+                   ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_s * 1e3, bound_by=b_by,
+                   roofline_share=b_s / (kern_ms * 1e-3),
+                   gb_per_s=nbytes / (kern_ms * 1e-3) / 1e9,
+                   gflop_per_s=spec.flops_per_cell * t * cells
+                   / (kern_ms * 1e-3) / 1e9,
+                   cell_steps_per_s=cells * t / (kern_ms * 1e-3),
+                   tile_f64=list(gd["block"]), ms_f64=ms_f64,
+                   bound_ms_f64=b64 * 1e3, launches=c["launches"],
+                   run_steps=2 * t + 1, run_ms=run_ms,
+                   run_cell_steps_per_s=cells * (2 * t + 1)
+                   / (run_ms * 1e-3),
+                   host_s_first_call=c["host_s"])
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+
+    # the stream sweep: j2d5pt at 8352² as 8352×1×8352, t=12
+    zc, ty, tx = lifted["block"]
+    kw = dict(zdim=j5.domain[0], ydim=1, xdim=j5.domain[1])
+    spec_l = lift_2d_to_3d(j5)
+    outs = torch.empty_like(xps)
+    s_ms = median_ms(lambda: st3.ebisu3d_padded(
+        xps, spec_l, 12, zc=zc, ty=ty, tx=tx, out=outs, **kw), 20, 3)
+    s_plain = median_ms(lambda: st3.ebisu3d_padded_plain(
+        xps, spec_l, 12, **kw), 5, 1)
+    b_s, b_by, nbytes = bound(x5.numel(), xps.numel(), 12,
+                              j5.flops_per_cell, 4)
+    stream = dict(stencil="j2d5pt stream", t=12, domain=list(j5.domain),
+                  tile=[zc, ty, tx], grid=list(lifted["grid"]),
+                  padded=list(lifted["padded"]),
+                  smem_bytes=lifted["smem_bytes"], ms=s_ms,
+                  plain_ms=s_plain, bound_ms=b_s * 1e3, bound_by=b_by,
+                  roofline_share=b_s / (s_ms * 1e-3),
+                  gb_per_s=nbytes / (s_ms * 1e-3) / 1e9,
+                  launches=stream_launches)
+    print("[timing] " + json.dumps(stream), flush=True)
+    return kernel_entry(
+        "stencil3d", SOURCE_3D, REPLACES_3D, launches, max_err, rows,
+        "sums of one sweep of each 3-D Table-2 stencil at 2560x288x384 "
+        "and EBISU depth, f32; the stream sweep is listed apart",
+        stream=stream)
 
 
 if __name__ == "__main__":

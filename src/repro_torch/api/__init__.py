@@ -1,4 +1,4 @@
-"""Public compile-once API of the port (2-D slice).
+"""Public compile-once API of the port.
 
     from repro_torch.api import Boundary, compile_stencil, define_stencil
     spec = define_stencil([((0, 0), 0.6), ((0, 1), 0.1), ...])  # any taps
@@ -13,8 +13,9 @@ from repro_torch.api.define import from_operator, parse_taps, spec_from_json
 from repro_torch.api.program import (ProgramCache, StencilProgram,
                                      cache_stats, clear_caches,
                                      compile_stencil, plan_bucketed,
-                                     resolve_compute_dtype, resolve_device,
+                                     resolve_compute_dtype,
                                      resolve_geometry, sweep_schedule)
+from repro_torch.core.device import resolve_device
 from repro_torch.core.stencil_spec import (StencilSpec, define_stencil,
                                            spec_from_reference)
 

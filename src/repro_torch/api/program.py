@@ -1,5 +1,5 @@
 """``StencilProgram`` on the card: the compile-once front door for temporal
-blocking (counterpart of ``repro.api.program``, its 2-D half).
+blocking (counterpart of ``repro.api.program``).
 
 ``compile_stencil`` resolves the §6 plan, the CTA tile of every sweep
 depth and the boundary execution strategy once, and returns an immutable
@@ -10,6 +10,16 @@ depth and the boundary execution strategy once, and returns an immutable
     prog = compile_stencil(get("j2d5pt"), (8352, 8352), t=12)  # on cuda
     y = prog.apply(x)        # one sweep of 12 fused steps
     y = prog.run(x, 25)      # sweeps of depth 12, 12, then 1
+    prog3 = compile_stencil(get("j3d7pt"), (2560, 288, 384), t=8)
+    y = prog3.apply(x3)      # the z-streaming kernel
+    prog_s = compile_stencil(get("j2d5pt"), (8352, 8352), t=12,
+                             mode="stream")
+    y = prog_s.apply(x)      # 2-D streamed in y as an (H, 1, W) domain
+
+2-D specs run the tile kernel (``kernels/stencil2d.py``); 3-D specs, and
+2-D specs under ``mode="stream"``, run the z-streaming kernel
+(``kernels/stencil3d.py``), the 2-D field lifted to ``(H, 1, W)`` with
+its boundary resolved before lifting.
 
 Where the reference wraps the sweep chain in ``jax.jit`` and donates the
 carry, the port runs an eager Python loop of kernel launches over two
@@ -19,9 +29,9 @@ the constant Dirichlet shift), or re-pin the ghost halo every sweep
 
 Programs run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every sweep takes the kernel's plain version.
-Not in this slice, and refused with the ROADMAP item that brings them:
-3-D specs, ``mode="stream"``/``"tuned"``, ``mesh=``, ``run_sharded``,
-``run_resumable``, ``run_batched`` and ``run_padded``.
+Not ported yet, and refused with the ROADMAP item that brings them:
+``mode="tuned"``, ``mesh=``, ``run_sharded``, ``run_resumable``,
+``run_batched`` and ``run_padded``.
 """
 from __future__ import annotations
 
@@ -34,19 +44,21 @@ import torch
 
 from repro_torch.api.boundary import ZERO, Boundary
 from repro_torch.core import roofline as rl
+from repro_torch.core.device import resolve_device
 from repro_torch.core.planner import (EbisuPlan, THREADS, fit_tile_2d,
-                                      plan as make_plan, smem_bytes_2d)
-from repro_torch.core.stencil_spec import StencilSpec, validate_spec
+                                      fit_tile_3d, plan as make_plan,
+                                      smem_bytes_2d)
+from repro_torch.core.stencil_spec import (StencilSpec, lift_2d_to_3d,
+                                           validate_spec)
 from repro_torch.kernels.stencil2d import (ebisu2d_padded, padded_shape_2d,
                                            strip_geometry)
+from repro_torch.kernels.stencil3d import ebisu3d_padded, launch_geometry_3d
 from repro_torch.kernels.taps import ghost_extend, tap_sum
 
 _BUCKET = 64
 
-_SLICE_2 = "ROADMAP Queue 1 item 6 (slice 2: the 3-D stream kernel)"
 _LATER = {
     "tuned": "ROADMAP Queue 1 item 12 (tuning)",
-    "stream": _SLICE_2,
     "mesh": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
     "run_sharded": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
     "run_resumable": "ROADMAP Queue 1 item 10 (resilient campaigns)",
@@ -153,13 +165,14 @@ def plan_bucketed(spec: StencilSpec, shape: tuple[int, ...],
                   hw: rl.HardwareModel = rl.H100,
                   itemsize: int | None = None) -> EbisuPlan:
     """§6 plan memoized per (tap structure, 64-rounded domain, hardware,
-    cell size) — keyed on ``spec.signature``, never the name.
+    cell size) — keyed on ``spec.signature``, never the name.  An extent
+    of 1 (the lifted 2-D ``stream`` domain's y) is kept as it is.
 
         p = plan_bucketed(get("j2d5pt"), (512, 512))
         p.t, p.block          # §6.2 depth, CTA tile
     """
     itemsize = itemsize or hw.s_cell
-    bucket = tuple(_round_up(d, _BUCKET) for d in shape)
+    bucket = tuple(_round_up(d, _BUCKET) if d > 1 else d for d in shape)
     key = (spec.signature, bucket, hw.name, itemsize)
     return PLAN_CACHE.get_or_build(
         key, lambda: make_plan(spec, hw, domain=bucket, itemsize=itemsize))
@@ -182,16 +195,37 @@ def sweep_tile(spec: StencilSpec, t: int, shape: tuple[int, int],
     return fit[0], fit[1]
 
 
-def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, int], *,
+def sweep_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                  hw: rl.HardwareModel, itemsize: int
+                  ) -> tuple[int, int, int]:
+    """The CTA tile ``(zc, ty, tx)`` of a depth-``t`` 3-D sweep over
+    ``shape``: the planner's fit for this very shape (a tile planned for
+    another extent could cover, and so untile, an axis it should rim)."""
+    fit = fit_tile_3d(spec, t, tuple(shape), hw, itemsize)
+    if fit is None:
+        raise ValueError(
+            f"{spec.name}: depth t={t} (halo {spec.halo(t)}) leaves no CTA "
+            f"tile within the {int(hw.onchip_bytes)} B shared-memory limit "
+            f"of {hw.name} at {itemsize}-byte cells; lower t")
+    return fit[:3]
+
+
+def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, ...], *,
                      hw: rl.HardwareModel = rl.H100, itemsize: int = 4,
                      plan: EbisuPlan | None = None) -> dict:
     """The launch a depth-``t`` sweep over ``shape`` executes: CTA tile,
     grid, halo, padded layout, threads, shared memory, and the cells each
-    CTA loads (``fetched_cells``) and writes (``body_cells``).
+    CTA loads (``fetched_cells``) and writes (``body_cells``).  A 3-D
+    spec (a ``stream`` program's lifted one among them) resolves the
+    z-streaming launch, with its ``ring`` slots.
 
         g = resolve_geometry(get("j2d5pt"), 4, (512, 512))
         g["grid"], g["block"], g["halo"]    # what apply() will launch
     """
+    if spec.ndim == 3:
+        zc, ty, tx = sweep_tile_3d(spec, t, shape, hw, itemsize)
+        return launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
+                                  itemsize=itemsize)
     bh, bw = sweep_tile(spec, t, shape, hw, itemsize, plan)
     bh, bw, halo = strip_geometry(spec, t, bh, bw)
     hp, wp = padded_shape_2d(spec, t, bh, bw, *shape)
@@ -200,6 +234,18 @@ def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, int], *,
                 smem_bytes=smem_bytes_2d(spec, t, bh, bw, itemsize),
                 fetched_cells=(bh + 2 * halo) * (bw + 2 * halo),
                 body_cells=bh * bw)
+
+
+def kernel_view(spec: StencilSpec, kernel_spec: StencilSpec,
+                shape: tuple[int, ...]):
+    """The kernel's domain for a domain ``shape`` of ``spec``, and where
+    ``spec``'s field lies in the kernel's padded buffer.  A ``stream``
+    program's kernel spec is the lifted one: its ``(H, W)`` field is the
+    one y row of an ``(H, 1, W)`` kernel domain."""
+    if kernel_spec.ndim == spec.ndim:
+        return shape, tuple(slice(0, n) for n in shape)
+    height, width = shape
+    return (height, 1, width), (slice(0, height), 0, slice(0, width))
 
 
 # ===================================================== multi-sweep runner ==
@@ -226,11 +272,31 @@ def _grouped(schedule: tuple[int, ...]) -> list[tuple[int, int]]:
     return [(d, c) for d, c in out]
 
 
-def _build_chain(spec: StencilSpec, shape: tuple[int, int],
+def _sweep_launch(spec: StencilSpec, t: int, shape: tuple[int, ...],
+                  hw: rl.HardwareModel, itemsize: int, plan: EbisuPlan):
+    """One depth-``t`` sweep of the kernel ``spec`` over its domain
+    ``shape`` as ``(padded shape, sweep(xp, out=buf))``."""
+    g = resolve_geometry(spec, t, shape, hw=hw, itemsize=itemsize,
+                         plan=plan)
+    if spec.ndim == 2:
+        (bh, bw), (height, width) = g["block"], shape
+        return g["padded"], functools.partial(
+            ebisu2d_padded, spec=spec, t=t, height=height, width=width,
+            bh=bh, bw=bw)
+    zc, ty, tx = g["block"]
+    return g["padded"], functools.partial(
+        ebisu3d_padded, spec=spec, t=t, zdim=shape[0], ydim=shape[1],
+        xdim=shape[2], zc=zc, ty=ty, tx=tx)
+
+
+def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
                  dtype: torch.dtype, total_t: int, depth: int,
                  plan: EbisuPlan, hw: rl.HardwareModel, boundary: Boundary,
-                 compute_dtype: torch.dtype):
-    """The multi-sweep schedule as ``f(x) -> x``.
+                 compute_dtype: torch.dtype, kernel_spec: StencilSpec):
+    """The multi-sweep schedule as ``f(x) -> x``, for 2-D and 3-D specs
+    and the lifted 2-D ``stream`` sweep alike: the boundary is resolved
+    on ``spec``'s field and every sweep launches ``kernel_spec`` (under
+    ``stream`` the lifted spec, see :func:`kernel_view`).
 
     Zero Dirichlet, and Dirichlet(v) with taps summing to 1 (the exact
     constant shift): pad once per depth group, launch the sweeps over two
@@ -238,12 +304,13 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, int],
     (depth-1 sweeps only): ``u' = Z_1(u − v) + v·s`` around every sweep.
     Periodic / reflect / neumann: the padded layout is not closed under
     the boundary, so every sweep re-pins the ghost halo from the evolved
-    field and runs on the extended domain.  Buffers are
-    ``compute_dtype``; only the result is cast to ``dtype``.  One sweep
-    (``total_t == depth``) is what :meth:`StencilProgram.apply` runs.
+    field (on the spec's own axes: a ``stream`` sweep's size-1 lifted
+    axis is never ghost-extended) and runs on the extended domain.
+    Buffers are ``compute_dtype``; only the result is cast to ``dtype``.
+    One sweep (``total_t == depth``) is what :meth:`StencilProgram.apply`
+    runs.
     """
     boundary.validate_for(spec, t=depth)
-    height, width = shape
     groups = _grouped(sweep_schedule(total_t, depth))
     repin = boundary.kind in ("periodic", "reflect", "neumann")
     s = tap_sum(spec.taps)
@@ -255,39 +322,39 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, int],
     def halo_of(d: int) -> int:
         return spec.halo(d) if repin else 0
 
-    def ext(d: int) -> tuple[int, int]:
-        return height + 2 * halo_of(d), width + 2 * halo_of(d)
+    def ext(d: int) -> tuple[int, ...]:
+        return tuple(n + 2 * halo_of(d) for n in shape)
 
-    tiles = {d: sweep_tile(spec, d, ext(d), hw, itemsize, plan)
-             for d, _ in groups}
+    launches = {}
+    for d, _ in groups:
+        kshape, index = kernel_view(spec, kernel_spec, ext(d))
+        launches[d] = (*_sweep_launch(kernel_spec, d, kshape, hw, itemsize,
+                                      plan), index)
 
     def chain(v: torch.Tensor) -> torch.Tensor:
         for d, count in groups:
-            bh, bw = tiles[d]
-            he, we = ext(d)
+            padded, sweep, index = launches[d]
             halo = halo_of(d)
-            hp, wp = padded_shape_2d(spec, d, bh, bw, he, we)
-            sweep = functools.partial(ebisu2d_padded, spec=spec, t=d,
-                                      height=he, width=we, bh=bh, bw=bw)
-            xp = torch.zeros((hp, wp), dtype=compute_dtype, device=v.device)
+            crop = tuple(slice(halo, halo + n) for n in shape)
+            xp = torch.zeros(padded, dtype=compute_dtype, device=v.device)
             buf = torch.empty_like(xp)
             if repin or affine:
                 for _ in range(count):
                     w = v - shift if affine else v
-                    xp[:he, :we] = (ghost_extend(w, 2, halo, boundary)
-                                    if repin else w)
+                    xp[index] = (ghost_extend(w, spec.ndim, halo, boundary)
+                                 if repin else w)
                     sweep(xp, out=buf)
                     # a view of buf: read (ghost_extend / the shift
                     # makes a new tensor) before the next sweep writes buf
-                    v = buf[halo:halo + height, halo:halo + width]
+                    v = buf[index][crop]
                     if affine:
                         v = v + shift * s ** d
             else:
-                xp[:height, :width] = v
+                xp[index] = v
                 for _ in range(count):
                     sweep(xp, out=buf)
                     xp, buf = buf, xp
-                v = xp[:height, :width]
+                v = xp[index]
         return v
 
     if boundary.kind == "dirichlet" and boundary.value != 0.0 and not affine:
@@ -305,19 +372,20 @@ def _plan_key(plan: EbisuPlan):
 
 
 class StencilProgram:
-    """An immutable compiled 2-D stencil: spec + domain shape + §6 plan +
-    boundary + device, with memoized sweep chains.  Construct via
-    :func:`compile_stencil`:
+    """An immutable compiled 2-D or 3-D stencil: spec + domain shape + §6
+    plan + boundary + mode + device, with memoized sweep chains.
+    Construct via :func:`compile_stencil`:
 
         prog = compile_stencil(get("j2d5pt"), (512, 512), t=4)
         y = prog.apply(x)            # one temporally-blocked sweep
         y = prog.run(x, 64)          # 64 steps as 16 chained sweeps
     """
 
-    def __init__(self, key, spec: StencilSpec, shape: tuple[int, int],
+    def __init__(self, key, spec: StencilSpec, shape: tuple[int, ...],
                  dtype: torch.dtype, t: int, plan: EbisuPlan,
                  hw: rl.HardwareModel, boundary: Boundary, mode: str,
-                 device: torch.device, compute_dtype: torch.dtype):
+                 device: torch.device, compute_dtype: torch.dtype,
+                 kernel_spec: StencilSpec):
         self._key = key
         self.spec = spec
         self.shape = shape
@@ -329,6 +397,7 @@ class StencilProgram:
         self.mode = mode
         self.device = device
         self.compute_dtype = compute_dtype
+        self.kernel_spec = kernel_spec   # the lifted spec under "stream"
 
     # ------------------------------------------------------- execution ----
     def _check(self, x) -> torch.Tensor:
@@ -359,7 +428,7 @@ class StencilProgram:
             (self._key, "apply", depth),
             lambda: _build_chain(self.spec, self.shape, self.dtype, depth,
                                  depth, self.plan, self.hw, self.boundary,
-                                 self.compute_dtype))
+                                 self.compute_dtype, self.kernel_spec))
         return fn(x)
 
     def run(self, x, total_t: int) -> torch.Tensor:
@@ -367,7 +436,14 @@ class StencilProgram:
         sweep when the depth does not divide ``total_t``).
 
             y = prog.run(x, 10)     # t=4: sweeps of depth 4, 4, then 2
+
+        A ``mode="stream"`` program runs one sweep (``apply``) only, as the
+        reference's does.
         """
+        if self.mode == "stream":
+            raise ValueError(
+                "run supports mode 'fused' (use apply for the lifted "
+                "'stream' path)")
         x = self._check(x)
         if total_t == 0:
             return x
@@ -376,7 +452,7 @@ class StencilProgram:
             (self._key, "run", total_t),
             lambda: _build_chain(self.spec, self.shape, self.dtype, total_t,
                                  depth, self.plan, self.hw, self.boundary,
-                                 self.compute_dtype))
+                                 self.compute_dtype, self.kernel_spec))
         return fn(x)
 
     def run_batched(self, xs, total_t: int | None = None):
@@ -408,7 +484,7 @@ class StencilProgram:
             "plan": repr(_plan_key(self.plan)),
         }
 
-    def compute_shape(self, t: int | None = None) -> tuple[int, int]:
+    def compute_shape(self, t: int | None = None) -> tuple[int, ...]:
         """The domain the kernel computes: the program shape, extended by
         ``t·rad`` per side for ghost-pinned boundaries."""
         depth = self.t if t is None else t
@@ -422,9 +498,10 @@ class StencilProgram:
         :func:`resolve_geometry`)."""
         depth = self.t if t is None else t
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-        return resolve_geometry(self.spec, depth, self.compute_shape(depth),
-                                hw=self.hw, itemsize=itemsize,
-                                plan=self.plan)
+        kshape, _ = kernel_view(self.spec, self.kernel_spec,
+                                self.compute_shape(depth))
+        return resolve_geometry(self.kernel_spec, depth, kshape, hw=self.hw,
+                                itemsize=itemsize, plan=self.plan)
 
     def cost(self, t: int | None = None) -> rl.RooflineResult:
         """§5 practical-attainable estimate at depth ``t``: the plan's own
@@ -466,22 +543,6 @@ def resolve_compute_dtype(dtype: torch.dtype,
     return cd
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the card, and
-    raises when there is none (pass ``device="cpu"`` to run the plain
-    version on the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device and none is available; "
-                "pass device=\"cpu\" to run the plain PyTorch version")
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
                     dtype: torch.dtype = torch.float32,
                     t: int | None = None,
@@ -489,12 +550,18 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
                     boundary: Boundary | None = None, mode: str = "fused",
                     compute_dtype: torch.dtype | None = None, mesh=None,
                     device=None) -> StencilProgram:
-    """Compile a 2-D stencil to an immutable :class:`StencilProgram`.
+    """Compile a 2-D or 3-D stencil to an immutable
+    :class:`StencilProgram`.
 
         from repro_torch.api import Boundary, compile_stencil
         prog = compile_stencil(spec, (4096, 4096), t=8,
                                boundary=Boundary.periodic())
         y = prog.run(x, 64)
+
+    ``mode`` is ``"fused"`` (2-D: the tile kernel; 3-D: the z-streaming
+    kernel) or, for a 2-D spec, ``"stream"``: the 2-D field streamed
+    through the z-streaming kernel as an ``(H, 1, W)`` domain, planned on
+    the lifted spec (``apply`` only, as in the reference).
 
     ``device`` defaults to the current CUDA device and raises if there is
     none; ``device="cpu"`` runs the plain version.  ``hw`` defaults to the
@@ -505,26 +572,27 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     recompiling with identical arguments returns the same handle.
     """
     validate_spec(spec)
-    if spec.ndim != 2:
-        raise NotImplementedError(
-            f"{spec.name} is {spec.ndim}-D; repro_torch runs 2-D stencils "
-            f"only so far: the 3-D half is {_SLICE_2}")
-    if mode in ("stream", "tuned"):
+    if mode == "tuned":
         raise _not_ported(mode)
-    if mode != "fused":
-        raise ValueError(f"unknown mode {mode!r}; expected 'fused' (the "
-                         "CUDA kernel always ping-pongs in shared memory)")
+    if mode not in ("fused", "stream"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'fused' or, for "
+                         "a 2-D spec, 'stream'")
+    if mode == "stream" and spec.ndim != 2:
+        raise ValueError(f"mode='stream' lifts a 2-D stencil; {spec.name} "
+                         "is 3-D and always streams z (mode='fused')")
     if mesh is not None:
         raise _not_ported("mesh")
     shape = tuple(int(n) for n in shape)
-    if len(shape) != 2:
-        raise ValueError(f"{spec.name} is 2-D; got shape {shape}")
+    if len(shape) != spec.ndim:
+        raise ValueError(f"{spec.name} is {spec.ndim}-D; got shape {shape}")
     device = resolve_device(device)
     hw = hw or rl.hardware_for(device)
     boundary = ZERO if boundary is None else boundary
     cdtype = resolve_compute_dtype(dtype, compute_dtype)
     itemsize = torch.empty((), dtype=cdtype).element_size()
-    plan = plan_bucketed(spec, shape, hw, itemsize)
+    kernel_spec = lift_2d_to_3d(spec) if mode == "stream" else spec
+    plan = plan_bucketed(kernel_spec, kernel_view(spec, kernel_spec,
+                                                  shape)[0], hw, itemsize)
     depth = t if t is not None else plan.t
     if depth < 1:
         raise ValueError(f"temporal depth must be >= 1, got {depth}")
@@ -535,7 +603,7 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     if cached is not None:
         return cached
     prog = StencilProgram(key, spec, shape, dtype, depth, plan, hw,
-                          boundary, mode, device, cdtype)
+                          boundary, mode, device, cdtype, kernel_spec)
     prog.geometry()     # refuse a depth whose tile cannot fit, here
     PROGRAM_CACHE.put(key, prog)
     return prog

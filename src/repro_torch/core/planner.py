@@ -20,13 +20,30 @@ vector tile floor, a Pallas ``num_buffers`` pipeline depth and a
 
 Columns are tiled too: at the paper's widths a full-width strip of
 8352 f32 cells per row cannot fit 227 KB with any useful depth.
+
+A 3-D plan (and the lifted 2-D ``stream`` mode) describes the z-streaming
+kernel instead (``kernels/csrc/stencil3d.cu``): a CTA owns a
+``(zc, ty, tx)`` tile of output cells and streams its ``zc + 2·halo``
+input planes through ``t`` rings of ``2·rad+2`` planes in shared memory,
+one ring per time level (the paper's circular multi-queue).  Ring ``s``
+holds planes narrowed in-plane by ``rad`` per step on tiled axes,
+``(ty + 2(t−s)·rad) × (tx + 2(t−s)·rad)``; an untiled axis (its tile
+covers the domain) has no rim, only a zero frame as wide as the taps'
+reach on that axis.  :func:`smem_bytes_3d` is exactly what the kernel
+allocates.  The plan picks the in-plane tile that loads the fewest
+redundant cells (``tx`` a multiple of 32), then the z chunk ``zc`` that
+fills the card's SMs in whole waves while keeping ``zc/(zc+2·halo)``
+high (:func:`fit_tile_3d`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import functools
+
 from repro_torch.core import roofline as rl
+from repro_torch.core.multiqueue import kernel_layout
 from repro_torch.core.stencil_spec import StencilSpec
 
 THREADS = 512           # blockDim (32, 16): one warp across a tile row
@@ -34,6 +51,7 @@ COL_ALIGN = 32          # bw is a multiple of one warp's width
 ROW_ALIGN = 8
 # each resident CTA also holds 1 KB of shared memory the runtime reserves
 _RESERVED_PER_CTA = 1024
+_MAX_THREADS_PER_SM = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +59,8 @@ class EbisuPlan:
     spec_name: str             # display only: caches key on spec.signature
     hw_name: str
     t: int                     # temporal blocking depth
-    block: tuple[int, int]     # CTA tile of output cells (bh, bw)
+    block: tuple[int, ...]     # CTA tile of output cells: (bh, bw) in
+    #                            2-D, (zc, ty, tx) in 3-D
     halo: int                  # t · rad
     threads: int               # threads per CTA
     smem_bytes: int            # shared memory one CTA claims
@@ -95,19 +114,158 @@ def tile_valid_fraction(spec: StencilSpec, t: int, bh: int, bw: int) -> float:
     return bh * bw / ((bh + 2 * h) * (bw + 2 * h))
 
 
+# ================================================================= 3-D ==
+def axis_reach(spec: StencilSpec, axis: int) -> int:
+    """Largest |offset| of the taps along ``axis``."""
+    return max(abs(off[axis]) for off, _ in spec.taps)
+
+
+def resolve_axis(dim: int, tile: int | None) -> tuple[int, bool]:
+    """An in-plane tile request as ``(extent, tiled)``: ``None``, or a
+    tile that covers the domain, leaves the axis untiled (full extent,
+    no rim: the array's edge is the boundary)."""
+    if tile is None or tile >= dim:
+        return dim, False
+    if tile < 1:
+        raise ValueError(f"tile extent must be >= 1, got {tile}")
+    return tile, True
+
+
+def ring_extents_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                    ty: int | None, tx: int | None) -> dict:
+    """In-plane geometry of the kernel's rings: per axis the resolved
+    tile, whether it is tiled, and its zero frame (the taps' reach on an
+    untiled axis, 0 on a tiled one); and the plane extent ``(ey, ex)``
+    of every time level ``s = 0..t`` (level ``t`` is the output tile and
+    has no ring)."""
+    _, ydim, xdim = shape
+    rad = spec.radius
+    (ty, tiled_y), (tx, tiled_x) = resolve_axis(ydim, ty), resolve_axis(
+        xdim, tx)
+    fy = 0 if tiled_y else axis_reach(spec, 1)
+    fx = 0 if tiled_x else axis_reach(spec, 2)
+    extents = [(ty + 2 * (t - s) * rad if tiled_y else ydim + 2 * fy,
+                tx + 2 * (t - s) * rad if tiled_x else xdim + 2 * fx)
+               for s in range(t + 1)]
+    return dict(tile=(ty, tx), tiled=(tiled_y, tiled_x), frame=(fy, fx),
+                extents=extents)
+
+
+def smem_bytes_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                  ty: int | None, tx: int | None, itemsize: int) -> int:
+    """Shared memory of one CTA of the 3-D kernel: ``t`` rings (time
+    levels ``0..t-1``) of ``2·rad+2`` planes each."""
+    ring = kernel_layout(t, spec.radius).ring
+    ext = ring_extents_3d(spec, t, shape, ty, tx)["extents"]
+    return ring * sum(ey * ex for ey, ex in ext[:t]) * itemsize
+
+
+def _tile_choices(dim: int, align: int) -> list[tuple[int, int]]:
+    """``(tile, count)`` for every number of tiles along an axis: the
+    smallest ``align``-multiple tile giving that count; ``(dim, 1)`` is
+    the untiled axis."""
+    out = {dim: 1}
+    for n in range(2, dim + 1):
+        tile = _pad_to(-(-dim // n), align)
+        if tile < dim:
+            out.setdefault(tile, -(-dim // tile))
+    return sorted(out.items())
+
+
+def _resident_ctas(hw: rl.HardwareModel, smem: int) -> int:
+    per_sm = int(hw.onchip_bytes) + _RESERVED_PER_CTA
+    return max(1, min(_MAX_THREADS_PER_SM // THREADS,
+                      per_sm // (smem + _RESERVED_PER_CTA)))
+
+
+def _z_chunk(zdim: int, halo: int, tiles_xy: int, slots: int) -> int:
+    """The z chunk whose grid fills ``slots`` concurrent CTAs in the
+    fullest waves, weighted by the chunk's valid fraction
+    ``zdim / (chunks·(zc + 2·halo))``; ties go to the larger chunk."""
+    best = None
+    for n in range(1, zdim + 1):
+        zc = -(-zdim // n)
+        chunks = -(-zdim // zc)
+        ctas = chunks * tiles_xy
+        waves = -(-ctas // slots)
+        score = zdim / (chunks * (zc + 2 * halo)) * ctas / (waves * slots)
+        if best is None or score > best[0] + 1e-12:
+            best = (score, zc)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=1024)
+def fit_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                hw: rl.HardwareModel, itemsize: int
+                ) -> tuple[int, int, int, int] | None:
+    """The CTA tile ``(zc, ty, tx, resident_ctas)`` of a depth-``t``
+    3-D sweep over ``shape``, or ``None`` if no tile with ``tx`` a
+    multiple of 32 (or ``x`` untiled) fits the per-block limit.
+
+    In-plane it minimizes the cells loaded per output cell,
+    ``Π (tiles·(tile + 2·halo)) / dim`` over tiled axes (padding
+    included); then :func:`_z_chunk` sizes ``zc`` for the SM count at
+    the resident CTAs the footprint allows."""
+    zdim, ydim, xdim = shape
+    h = spec.halo(t)
+    limit = int(hw.onchip_bytes)
+    best = None
+    for ty, ny in _tile_choices(ydim, 1):
+        for tx, nx in _tile_choices(xdim, COL_ALIGN):
+            eff = ((ydim / (ny * (ty + 2 * h)) if ny > 1 else 1.0)
+                   * (xdim / (nx * (tx + 2 * h)) if nx > 1 else 1.0))
+            if best is not None and eff < best[0] - 1e-12:
+                continue
+            if smem_bytes_3d(spec, t, shape, ty, tx, itemsize) > limit:
+                continue
+            key = (eff, ty * tx)
+            if best is None or key > best[:2]:
+                best = (eff, ty * tx, ty, tx, ny * nx)
+    if best is None:
+        return None
+    _, _, ty, tx, tiles_xy = best
+    resident = _resident_ctas(
+        hw, smem_bytes_3d(spec, t, shape, ty, tx, itemsize))
+    zc = _z_chunk(zdim, h, tiles_xy, hw.sm_count * resident)
+    return zc, ty, tx, resident
+
+
+def _plan_3d(spec: StencilSpec, hw: rl.HardwareModel,
+             domain: tuple[int, int, int], max_t: int,
+             itemsize: int) -> EbisuPlan:
+    t = min(max_t, max(1, int(math.ceil(
+        rl.desired_depth(spec, hw, rst=True)))))
+    while t > 1 and fit_tile_3d(spec, t, domain, hw, itemsize) is None:
+        t -= 1
+    fit = fit_tile_3d(spec, t, domain, hw, itemsize)
+    if fit is None:
+        raise ValueError(
+            f"{spec.name}: no CTA tile fits the {int(hw.onchip_bytes)} B "
+            f"shared-memory limit of {hw.name} at {itemsize}-byte cells, "
+            "even at t=1")
+    zc, ty, tx, _ = fit
+    h = spec.halo(t)
+    d_all = math.prod(domain)
+    t_sweep = rl.component_times(spec, t, hw, rst=True, d_all=d_all)
+    v = zc / (zc + 2 * h)
+    if (ty, tx) != tuple(domain[1:]):        # in-plane redundancy (Eq 9)
+        v = max(0.01, v * rl.v_smtile(spec, t, (ty, tx)))
+    v *= rl.v_dtile(max(t_sweep[:3]), hw, 1)
+    res = rl.attainable(spec, t, hw, rst=True, v=v, d_all=d_all)
+    return EbisuPlan(spec.name, hw.name, t, (zc, ty, tx), h, THREADS,
+                     smem_bytes_3d(spec, t, domain, ty, tx, itemsize), res)
+
+
 def plan(spec: StencilSpec, hw: rl.HardwareModel,
          domain: tuple[int, ...] | None = None, max_t: int = 32,
          itemsize: int | None = None) -> EbisuPlan:
-    """The §6 plan for a 2-D spec on ``hw``: depth (Eq 17, lowered until
-    a tile fits), CTA tile, threads and shared memory.  ``itemsize`` is
+    """The §6 plan for ``spec`` on ``hw``: depth (Eq 17, lowered until a
+    tile fits), CTA tile, threads and shared memory.  ``itemsize`` is
     the compute dtype's size (default ``hw.s_cell``)."""
-    if spec.ndim != 2:
-        raise NotImplementedError(
-            f"{spec.name}: the PyTorch port plans 2-D stencils only; the "
-            "3-D stream kernel and program half are ROADMAP Queue 1 item 6 "
-            "(slice 2)")
     domain = tuple(domain or spec.domain)
     itemsize = itemsize or hw.s_cell
+    if spec.ndim == 3:
+        return _plan_3d(spec, hw, domain, max_t, itemsize)
     t = min(max_t, max(1, int(math.ceil(
         rl.desired_depth(spec, hw, rst=True)))))
     while t > 1 and fit_tile_2d(spec, t, domain, hw, itemsize) is None:

@@ -105,6 +105,15 @@ def component_times(spec: StencilSpec, t: int, hw: HardwareModel, *,
     return t_gm, t_sm, t_cmp, d_all
 
 
+def v_smtile(spec: StencilSpec, t: int, tile: tuple[int, ...]) -> float:
+    """Eq 8 (2-D) / Eq 9 (3-D): valid fraction under overlapped tiling."""
+    h = spec.halo(t)
+    if spec.ndim == 2:
+        return max(0.0, (tile[0] - h) / tile[0])
+    return (max(0.0, (tile[0] - h) / tile[0])
+            * max(0.0, (tile[1] - h) / tile[1]))
+
+
 def v_dtile(t_stencil: float, hw: HardwareModel, n_syncs: int = 1) -> float:
     """Eq 11: valid fraction under device tiling with n syncs per tile."""
     return t_stencil / (t_stencil + hw.t_dsync * n_syncs)

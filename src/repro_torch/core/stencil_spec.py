@@ -228,7 +228,10 @@ def validate_spec(spec: StencilSpec) -> StencilSpec:
         raise ValueError(
             f"{spec.name}: domain {spec.domain} is {len(spec.domain)}-D "
             f"for a {ndim}-D tap set")
-    if any(d < 2 * radius + 2 for d in spec.domain):
+    # an axis the taps never move along (the lifted 2-D spec's y) may be
+    # one cell thick
+    reach = [max(abs(off[a]) for off, _ in spec.taps) for a in range(ndim)]
+    if any(r and d < 2 * radius + 2 for d, r in zip(spec.domain, reach)):
         raise ValueError(
             f"{spec.name}: domain {spec.domain} has an extent smaller than "
             f"2·radius+2 = {2 * radius + 2}; the halo would cover it")
@@ -397,6 +400,19 @@ TABLE3_DEPTHS = {
     "j3d27pt":    dict(stencilgen=2, an5d=3, drstencil=None, artemis=2, ebisu=5),
     "poisson":    dict(stencilgen=4, an5d=3, drstencil=2, artemis=2, ebisu=6),
 }
+
+
+def lift_2d_to_3d(spec: StencilSpec) -> StencilSpec:
+    """View a 2-D stencil as a 3-D stencil with y extent 1: ``(dy, dx)``
+    taps become ``(dz, 0, dx)`` over an ``(H, 1, W)`` domain.  This is how
+    EBISU streams 2-D domains (paper §2.1.3, 2.5-D streaming): the
+    streamed axis carries the circular multi-queue, so it has no
+    overlapped halo, unlike strip tiling.  The cost-model numbers are
+    the 2-D spec's."""
+    taps = tuple(((dy, 0, dx), c) for (dy, dx), c in spec.taps)
+    return dataclasses.replace(
+        spec, name=spec.name + "+lifted", ndim=3, taps=taps,
+        domain=(spec.domain[0], 1, spec.domain[1]))
 
 
 def get(name: str) -> StencilSpec:

@@ -1,6 +1,6 @@
-"""Stencil driver of the port: the paper's 2-D suite, end to end.
+"""Command-line runner of the port: the paper's Table-2 suite, end to end.
 
-    python -m repro_torch.launch.stencil_run --stencil j2d5pt,j2d9pt \\
+    python -m repro_torch.launch.stencil_run --stencil j2d5pt,j3d7pt \\
         [--scale N] [--t N] [--boundary periodic] [--device cuda|cpu]
 
 For each stencil it compiles a program on a Table-2 domain cut by
@@ -83,7 +83,8 @@ def run_single(spec: StencilSpec | str, *, t: int | None = None,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stencil", default="all",
-                    help="2-D Table-2 names (comma-separated) or 'all'")
+                    help="Table-2 names, 2-D or 3-D (comma-separated), or "
+                         "'all'")
     ap.add_argument("--t", type=int, default=None)
     ap.add_argument("--scale", type=int, default=64,
                     help="divide each Table-2 extent by N (1 = full size)")
@@ -92,8 +93,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the card")
     args = ap.parse_args(argv)
-    names = ([n for n, s in TABLE2.items() if s.ndim == 2]
-             if args.stencil == "all" else args.stencil.split(","))
+    names = list(TABLE2) if args.stencil == "all" else args.stencil.split(",")
     for n in names:
         run_single(n, t=args.t, scale=args.scale, boundary=args.boundary,
                    device=args.device)

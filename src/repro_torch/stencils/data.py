@@ -6,16 +6,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.stencil_spec import StencilSpec
 
 
 def init_domain(spec: StencilSpec, shape=None, dtype=torch.float32,
-                seed: int = 0, device="cpu") -> torch.Tensor:
+                seed: int = 0, device=None) -> torch.Tensor:
     """Uniform values in [0, 1) (float32 from ``numpy.random.default_rng
-    (seed)``), cast to ``dtype`` on ``device``."""
+    (seed)``), cast to ``dtype`` on ``device``.  ``device=None`` means the
+    card, as for ``compile_stencil``, and raises without one (pass
+    ``device="cpu"`` for a field on the CPU)."""
     shape = tuple(shape or spec.domain)
     arr = np.random.default_rng(seed).random(shape, dtype=np.float32)
-    return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    return torch.from_numpy(arr).to(device=resolve_device(device),
+                                    dtype=dtype)
 
 
 def reduced_domain(spec: StencilSpec, scale: int = 64):

@@ -1,11 +1,12 @@
-"""The port's CUDA kernel on a card: each test is marked ``cuda`` and skips
-without a CUDA device (the kernel has no CPU mode).  This file imports
+"""The port's CUDA kernels on a card: each test is marked ``cuda`` and skips
+without a CUDA device (the kernels have no CPU mode).  This file imports
 no JAX, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain version on the same padded input,
-and whole programs against the port's oracle.  Tolerances: 2e-5 for f32
+Each kernel is held against its plain version on the same padded input
+(the 3-D one also against a second launch, bit for bit), and whole
+programs against the port's oracle.  Tolerances: 2e-5 for f32
 (the reference suite's), 1e-12 for f64 (rounding of a different
 summation grouping only).
 """
@@ -17,6 +18,7 @@ from repro_torch.api import Boundary, compile_stencil
 from repro_torch.core import stencil_spec as tspec
 from repro_torch.kernels import ref
 from repro_torch.kernels import stencil2d as st
+from repro_torch.kernels import stencil3d as st3
 
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
 BOUNDARIES = [Boundary.dirichlet(0.0), Boundary.dirichlet(0.7),
@@ -88,3 +90,101 @@ def test_program_matches_oracle(cuda_device, name, boundary):
     torch.testing.assert_close(
         y, ref.reference(x, prog.spec, 9, boundary=boundary),
         atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------------------------ 3-D ----
+SPECS_3D = [n for n, s in tspec.TABLE2.items() if s.ndim == 3]
+# (shape, t, zc, ty, tx): ragged chunks and tiles, a tile narrower than
+# the halo, untiled axes, one chunk per CTA column
+TILINGS_3D = [((19, 13, 21), 2, 5, 4, 8),
+              ((23, 17, 40), 3, 7, 2, 32),
+              ((16, 20, 70), 2, 16, None, 32),
+              ((21, 9, 33), 1, 4, None, None)]
+
+
+def padded_3d(shape, t, spec, zc, ty, tx, dtype, device, seed=0):
+    zp, yp, xp = st3.padded_shape_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    buf = torch.zeros((zp, yp, xp), dtype=dtype, device=device)
+    buf[:shape[0], :shape[1], :shape[2]] = field(shape, seed).to(device)
+    return buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_3D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,t,zc,ty,tx", TILINGS_3D)
+def test_kernel_3d_matches_plain(cuda_device, name, dtype, shape, t, zc, ty,
+                                 tx):
+    spec = tspec.get(name)
+    xp = padded_3d(shape, t, spec, zc, ty, tx, dtype, cuda_device)
+    kw = dict(zdim=shape[0], ydim=shape[1], xdim=shape[2])
+    before = st3.ebisu3d_padded.launches
+    got = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+    again = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+    torch.cuda.synchronize()
+    assert st3.ebisu3d_padded.launches == before + 2
+    assert torch.equal(got, again)          # a missing barrier would race
+    want = st3.ebisu3d_padded_plain(xp, spec, t, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_2D)
+@pytest.mark.parametrize("tx", [None, 32])
+def test_kernel_lifted_2d_matches_plain(cuda_device, name, tx):
+    spec = tspec.lift_2d_to_3d(tspec.get(name))
+    shape, t = (45, 1, 77), 3
+    xp = padded_3d(shape, t, spec, 8, None, tx, torch.float32, cuda_device)
+    kw = dict(zdim=shape[0], ydim=1, xdim=shape[2])
+    got = st3.ebisu3d_padded(xp, spec, t, zc=8, tx=tx, **kw)
+    want = st3.ebisu3d_padded_plain(xp, spec, t, **kw)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_3d_refuses_what_it_cannot_run(cuda_device):
+    spec = tspec.get("j3d7pt")
+    xp = torch.zeros((16, 16, 32), device=cuda_device)
+    kw = dict(zdim=16, ydim=16, xdim=32, zc=16)
+    with pytest.raises(ValueError, match="alias"):
+        st3.ebisu3d_padded(xp, spec, 2, out=xp, **kw)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        st3.ebisu3d_padded(xp.half(), spec, 2, **kw)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        big = torch.zeros((64, 256, 256), device=cuda_device)
+        st3.ebisu3d_padded(big, spec, 16, zdim=64, ydim=256, xdim=256,
+                           zc=64)           # far beyond shared memory
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["j3d7pt", "j3d27pt"])
+@pytest.mark.parametrize("boundary", BOUNDARIES, ids=repr)
+def test_program_3d_matches_oracle(cuda_device, name, boundary):
+    shape = (40, 36, 70)
+    prog = compile_stencil(tspec.get(name), shape, t=3, boundary=boundary)
+    x = field(shape).to(cuda_device)
+    before = st3.ebisu3d_padded.launches
+    y1 = prog.apply(x)
+    y = prog.run(x, 7)
+    torch.cuda.synchronize()
+    assert st3.ebisu3d_padded.launches == before + 4
+    torch.testing.assert_close(
+        y1, ref.reference(x, prog.spec, 3, boundary=boundary),
+        atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(
+        y, ref.reference(x, prog.spec, 7, boundary=boundary),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_2D)
+def test_stream_apply_matches_oracle(cuda_device, name):
+    prog = compile_stencil(tspec.get(name), (300, 200), t=4, mode="stream")
+    x = field((300, 200)).to(cuda_device)
+    before = st3.ebisu3d_padded.launches
+    y = prog.apply(x)
+    torch.cuda.synchronize()
+    assert st3.ebisu3d_padded.launches == before + 1
+    torch.testing.assert_close(y, ref.reference(x, prog.spec, 4),
+                               atol=2e-5, rtol=2e-5)

@@ -142,9 +142,10 @@ def test_no_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("call", [
     lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16),
-                            device="cpu"),
+                            device="cpu").run_batched(
+                                torch.zeros((2, 16, 16, 16)), 4),
     lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="stream",
-                            device="cpu"),
+                            device="cpu").run_sharded(torch.zeros(SHAPE), 4),
     lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="tuned",
                             device="cpu"),
     lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mesh=(2, 1),
@@ -282,8 +283,8 @@ def test_apply_refuses_a_depth_the_boundary_cannot_run():
 def test_cli_on_cpu(capsys):
     stencil_run.main(["--device", "cpu", "--scale", "64"])
     out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 4
-    for line, name in zip(out, SPECS_2D):
+    assert len(out) == len(tspec.TABLE2)              # 2-D and 3-D
+    for line, name in zip(out, tspec.TABLE2):
         assert line.startswith(f"[stencil] {name}") and "maxerr=" in line
     stencil_run.main(["--device", "cpu", "--scale", "128", "--stencil",
                       "j2d5pt", "--t", "9", "--boundary", "periodic"])

@@ -40,6 +40,15 @@ def test_table3_depths_and_names_match_reference():
     assert tspec.names() == ref_spec.names()
 
 
+@pytest.mark.parametrize("name", SPECS_2D)
+def test_lifted_spec_matches_reference(name):
+    ref = ref_spec.lift_2d_to_3d(ref_spec.get(name))
+    mine = tspec.lift_2d_to_3d(tspec.get(name))
+    assert tspec.spec_from_reference(ref) == mine
+    assert mine.signature == ref.signature
+    assert (mine.name, mine.domain, mine.ndim) == (ref.name, ref.domain, 3)
+
+
 def test_spec_from_reference_takes_a_mapping():
     ref = ref_spec.get("j2d25pt")
     spec = tspec.spec_from_reference(dataclasses.asdict(ref))
@@ -107,8 +116,8 @@ def test_json_adapters_match_reference():
 def test_reduced_domain_and_seeded_init(name):
     assert (tdata.reduced_domain(tspec.get(name), 64)
             == ref_data.reduced_domain(ref_spec.get(name), 64))
-    a = tdata.init_domain(tspec.get(name), (20, 30), seed=3)
-    b = tdata.init_domain(tspec.get(name), (20, 30), seed=3)
+    a = tdata.init_domain(tspec.get(name), (20, 30), seed=3, device="cpu")
+    b = tdata.init_domain(tspec.get(name), (20, 30), seed=3, device="cpu")
     assert a.dtype == torch.float32 and torch.equal(a, b)
     assert 0.0 <= float(a.min()) and float(a.max()) < 1.0
 
@@ -155,8 +164,10 @@ def test_h100_depth_follows_eq17():
 
 
 def test_planner_refuses_3d_and_oversized_depth():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplanner.plan(tspec.get("j3d7pt"), trl.H100)
+    """A depth whose halo leaves no tile within shared memory is refused
+    in 3-D as in 2-D (the 3-D plan itself is in test_torch_stencil3d)."""
+    j3d = tspec.get("j3d13pt")
+    assert tplanner.fit_tile_3d(j3d, 32, j3d.domain, trl.H100, 8) is None
     assert tplanner.fit_tile_2d(tspec.get("j2d25pt"), 32, (8640, 8640),
                                 trl.H100, 8) is None
 
