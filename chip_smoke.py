@@ -1,41 +1,57 @@
 #!/usr/bin/env python3
 """Smoke test and measurement of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout, one card
+    python3 chip_smoke.py            # from the root of a checkout, one card
+    python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm)
 
-It builds the port's two CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, started together), then drives the port's main
-path — ``compile_stencil(...).apply`` and ``.run`` — in two counted runs:
+It builds the port's three CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, started together), then drives the port's paths
+through the entry points a user calls, each in its own counted run:
 
-* 2-D (``stencil2d``): the four 2-D Table-2 stencils at their Table-2
-  domains (8352², 8064², 8784², 8640²), f32, at the EBISU depth of
-  Table 3 (t = 12, 8, 6, 4), plus one periodic and one f64 program of
-  j2d5pt;
+* 2-D (``stencil2d``): ``compile_stencil(...).apply`` and ``.run`` for the
+  four 2-D Table-2 stencils at their Table-2 domains (8352², 8064², 8784²,
+  8640²), f32, at the EBISU depth of Table 3 (t = 12, 8, 6, 4), plus one
+  periodic and one f64 program of j2d5pt;
 * 3-D (``stencil3d``): the five 3-D Table-2 stencils at the paper's
   2560×288×384, f32, at t = 8, 5, 6, 5, 6, plus one periodic and one f64
   program of j3d7pt, and one ``mode="stream"`` apply of j2d5pt at 8352²
-  (the 2-D field streamed through the 3-D kernel as 8352×1×8352).
+  (the 2-D field streamed through the 3-D kernel as 8352×1×8352);
+* LM serving (``flash_attention``): ``launch.serve.run`` serves
+  h2o-danube-1.8b at its published widths (24 layers, d_model 2560, 32
+  heads, 8 kv heads, hd 80, window 4096; weights random from a seed, bf16)
+  to a batch of 4 prompts of 8192 tokens and decodes 32 greedy tokens,
+  with ``attention_impl="flash_pallas"``, so every prefill layer launches
+  the CUDA flash kernel (24 per prefill; one warm-up and two timed
+  prefills).
 
-Both kernels' launch counts are zeroed just before each run and read
-just after it, and must show every launch the sweep schedules call for.
+Every kernel's launch count is zeroed just before each run and read just
+after it, and must show every launch the run calls for and none of the
+other kernels.
 
-Then, outside the counted run, it holds every result against the port's
-plain PyTorch oracle on the card (max |err| < 1e-4 in f32, < 1e-10 in
-f64), holds each kernel against its plain version on the main path's own
-padded inputs (the 3-D kernel also against a second launch, bit for
-bit), and times with CUDA events (warm-up, then the median of 20
-launches): the kernel's ms per sweep (f32, and f64 as the paper ran),
-the plain version's, ``.run``'s end to end, and a yardstick,
-``library_ms`` = ``t`` chained ``torch.nn.functional.conv2d`` (3-D:
-``conv3d``) calls with zero padding and TF32 off (the port never calls
-it).  The bound of a sweep is the larger of its bytes (the ``height × width``
-domain read once, the padded layout the next sweep reads written once;
-the kernel reads no padded cell) over 3.35 TB/s and its
-``flops_per_cell·t·cells`` over 67 TFLOP/s fp32 (34 fp64), the H100 SXM
-datasheet peaks; ``bound_copy_ms`` puts the measured device-to-device
-copy rate in place of 3.35 TB/s.  ``ms_f32_at_f64_tile`` times the f32
-sweep at the smaller tile the planner picks for f64, which tells the
-tile's cost from the type's.
+Then, outside the counted runs: the stencil results against the port's
+plain oracle on the card (max |err| < 1e-4 in f32, < 1e-10 in f64), each
+stencil kernel against its plain version on the main path's own padded
+inputs (the 3-D kernel also against a second launch, bit for bit); the
+whole LM path in f32 at full width and depth 2, kernel against the chunked
+attention path (last-token logits < 1e-4, greedy agreement printed); the
+flash kernel against its plain version at the full-width layer shapes
+(f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
+element, two units in the last place, with a control that the limit
+refuses one key dropped from each window; both instantiations) and at
+small ones (GQA 1, bidirectional, hd 64/128/256).  Timings use CUDA
+events (warm-up, then the median): each kernel's ms, its plain version's,
+and a one-call yardstick the port never calls, ``library_ms``: ``t``
+chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
+``scaled_dot_product_attention`` with the same boolean mask and
+``enable_gqa=True`` for attention.  The bound of a stencil sweep is the
+larger of its bytes (the domain read once, the padded layout written
+once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
+(34 fp64); of an attention call, the larger of q, k, v read and o written
+once over 3.35 TB/s and ``4·hd`` flops per (query, key) pair the mask
+keeps over 989 TFLOP/s dense bf16 (H100 SXM datasheet peaks).  The 2-D
+rows also give ``bound_copy_ms`` (the measured device-to-device copy rate
+in place of 3.35 TB/s) and ``ms_f32_at_f64_tile`` (the f32 sweep at the
+f64 plan's smaller tile, which tells the tile's cost from the type's).
 
 The last lines are the card's ``name, power.limit``, one JSON object of
 the kernels, and ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -57,6 +73,17 @@ REPLACES = "src/repro/kernels/stencil2d.py:54"
 SOURCE = "src/repro_torch/kernels/csrc/stencil2d.cu"
 REPLACES_3D = "src/repro/kernels/stencil3d.py:134"
 SOURCE_3D = "src/repro_torch/kernels/csrc/stencil3d.cu"
+REPLACES_FA = ("src/repro/kernels/flash_attention.py:35 and "
+               "src/repro/kernels/flash_attention.py:127")
+SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+# the LM phase: h2o-danube-1.8b at its published widths, served
+LM_ARCH = "h2o-danube-1.8b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_REPEATS = 4, 8192, 32, 2
+LM_WHOLE_PATH_TOL = 1e-4     # f32 last-token logits, kernel vs chunked
+# bf16 out, kernel vs plain: |err| <= atol + rtol·|want| per element.  Both
+# round one float32 result to bf16, so a sound kernel is at most one unit
+# in the last place (2^-7·|want|) away; the limit allows two.
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -6
 
 
 def check(ok: bool, what: str) -> None:
@@ -101,15 +128,8 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import torch.nn.functional as F
-
-    from repro_torch.api import Boundary, compile_stencil
-    from repro_torch.core.roofline import H100, hardware_for
-    from repro_torch.core.stencil_spec import TABLE3_DEPTHS, get
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import stencil2d as st
-    from repro_torch.kernels import stencil3d as st3
-    from repro_torch.stencils.data import init_domain
+    from repro_torch.core.roofline import hardware_for
+    from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -133,11 +153,75 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    phases = sys.argv[1:] or ["2d", "3d", "lm"]
+    check(set(phases) <= {"2d", "3d", "lm"},
+          f"unknown phases {phases}; pass any of 2d 3d lm, or none for all")
+    entries = []
+    if "2d" in phases:
+        entries.append(two_d(dev))
+    if "3d" in phases:
+        entries.append(three_d(dev, held))
+        torch.cuda.empty_cache()
+    if "lm" in phases:
+        entries.append(lm_serve(dev, held))
+    print(f"[card] {smi_line()}", flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def held(got, want, tol, what):
+    """Check ``got`` against ``want`` within ``tol``; returns max |err|."""
+    import torch
+
+    err = float((got.double() - want.double()).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(err < tol, f"{what}: max|err| {err:.3e} >= {tol:g}")
+    print(f"[check] {what}: max|err| {err:.3e} (< {tol:g})", flush=True)
+    return err
+
+
+def held_bf16(got, want, what):
+    """Check bf16 ``got`` against ``want`` element by element within
+    ``BF16_ATOL + BF16_RTOL·|want|``; returns (max |err|, the largest
+    share of its element's limit)."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    share = float((d / (BF16_ATOL + BF16_RTOL * want.double().abs())).max())
+    err = float(d.max())
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(share <= 1.0, f"{what}: max|err| {err:.3e}, {share:.3f} of the "
+          f"limit {BF16_ATOL:g} + {BF16_RTOL:g}|want|")
+    print(f"[check] {what}: max|err| {err:.3e}, at most {share:.4f} of the "
+          f"limit {BF16_ATOL:g} + {BF16_RTOL:g}|want|", flush=True)
+    return err, share
+
+
+def two_d(dev) -> dict:
+    """The 2-D main path, counted; then its checks and timings,
+    uncounted.  Returns the ``stencil2d`` entry of the ``kernels``
+    line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.api import Boundary, compile_stencil
+    from repro_torch.core.roofline import H100
+    from repro_torch.core.stencil_spec import TABLE3_DEPTHS, get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.stencils.data import init_domain
+
     # ---- the 2-D main path, counted -------------------------------------
     names = ["j2d5pt", "j2d9pt", "j2d9pt-gol", "j2d25pt"]
     cases = {}
     st.ebisu2d_padded.launches = 0
     st3.ebisu3d_padded.launches = 0
+    fa.flash_attention_fwd.launches = 0
     for name in names:
         spec = get(name)
         t = TABLE3_DEPTHS[name]["ebisu"]
@@ -163,7 +247,9 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = st.ebisu2d_padded.launches
     print(f"[main path] stencil2d launches: {launches}", flush=True)
-    check(st3.ebisu3d_padded.launches == 0, "the 2-D path launched stencil3d")
+    check(st3.ebisu3d_padded.launches == 0
+          and fa.flash_attention_fwd.launches == 0,
+          "the 2-D path launched another kernel")
     # apply = 1 sweep; run(2t+1) = sweeps of t, t, 1 — for every program
     for name, c in cases.items():
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
@@ -173,13 +259,6 @@ def main() -> int:
 
     # ---- correctness, uncounted -----------------------------------------
     max_err = 0.0
-
-    def held(got, want, tol, what):
-        err = float((got.double() - want.double()).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-        check(err < tol, f"{what}: max|err| {err:.3e} >= {tol:g}")
-        print(f"[check] {what}: max|err| {err:.3e} (< {tol:g})", flush=True)
-        return err
 
     for name, c in cases.items():
         spec, prog, x, t = get(name), c["prog"], c["x"], c["t"]
@@ -300,14 +379,7 @@ def main() -> int:
                             "at its Table-2 domain and EBISU depth, f32")
     del cases, x5, x5d, y_per, y_d1, y_dT, buf, src
     torch.cuda.empty_cache()
-
-    entry_3d = three_d(dev, held)
-    print(f"[card] {smi_line()}", flush=True)
-    print(json.dumps({"kernels": [entry_2d, entry_3d]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return entry_2d
 
 
 def kernel_entry(name, source, replaces, launches, max_err, rows,
@@ -337,6 +409,7 @@ def three_d(dev, held) -> dict:
     from repro_torch.core.roofline import H100
     from repro_torch.core.stencil_spec import (TABLE3_DEPTHS, get,
                                                lift_2d_to_3d)
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels import stencil3d as st3
@@ -346,6 +419,7 @@ def three_d(dev, held) -> dict:
     cases = {}
     st.ebisu2d_padded.launches = 0
     st3.ebisu3d_padded.launches = 0
+    fa.flash_attention_fwd.launches = 0
     for name in names:
         spec = get(name)
         t = TABLE3_DEPTHS[name]["ebisu"]
@@ -376,7 +450,9 @@ def three_d(dev, held) -> dict:
     torch.cuda.synchronize()
     launches = st3.ebisu3d_padded.launches
     print(f"[main path 3-D] stencil3d launches: {launches}", flush=True)
-    check(st.ebisu2d_padded.launches == 0, "the 3-D path launched stencil2d")
+    check(st.ebisu2d_padded.launches == 0
+          and fa.flash_attention_fwd.launches == 0,
+          "the 3-D path launched another kernel")
     for name, c in cases.items():
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
     check(stream_launches == 1,
@@ -535,6 +611,213 @@ def three_d(dev, held) -> dict:
         "sums of one sweep of each 3-D Table-2 stencil at 2560x288x384 "
         "and EBISU depth, f32; the stream sweep is listed apart",
         stream=stream)
+
+
+def lm_serve(dev, held) -> dict:
+    """The LM serving path, counted: ``launch.serve.run`` serves
+    h2o-danube-1.8b at full width with the CUDA flash kernel in every
+    prefill layer.  Then, uncounted: the whole path against the chunked
+    path (f32, depth cut to 2), the kernel against its plain version at
+    the full-width layer shapes and at small ones, and the timing row.
+    Returns the ``flash_attention`` entry of the ``kernels`` line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.configs as C
+    from repro_torch.core.roofline import attention_bound
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import serve_step
+
+    cfg = C.get_config(LM_ARCH)
+    window = cfg.swa_window
+    st.ebisu2d_padded.launches = 0
+    st3.ebisu3d_padded.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = serve.run(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                    max_new=LM_NEW, reduced=False, seed=0,
+                    repeats=LM_REPEATS, device=dev,
+                    attention_impl="flash_pallas")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fa.flash_attention_fwd.launches
+    print(f"[main path LM] flash_attention launches: {launches} "
+          f"({res.kernel_launches_per_prefill} per prefill, "
+          f"{1 + LM_REPEATS} prefills)", flush=True)
+    check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
+          == 0, "the LM path launched a stencil kernel")
+    check(res.kernel_launches_per_prefill == cfg.n_layers,
+          f"{res.kernel_launches_per_prefill} flash launches per prefill, "
+          f"not {cfg.n_layers}")
+    check(launches == cfg.n_layers * (1 + LM_REPEATS),
+          f"LM path launched the kernel {launches} times, not "
+          f"{cfg.n_layers * (1 + LM_REPEATS)}")
+    toks = res.tokens
+    check(tuple(toks.shape) == (LM_BATCH, LM_NEW), "LM tokens shape")
+    check(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          "LM tokens out of the vocabulary")
+    lm = dict(arch=LM_ARCH, n_params=cfg.n_params(), batch=LM_BATCH,
+              prompt=LM_PROMPT, new_tokens=LM_NEW, dtype="bfloat16",
+              prefill_ms=res.prefill_ms,
+              prefill_tok_per_s=LM_BATCH * LM_PROMPT
+              / (res.prefill_ms * 1e-3),
+              decode_ms_per_step=res.decode_ms / res.decode_steps,
+              decode_tok_per_s=res.decode_tok_per_s,
+              launches_per_prefill=res.kernel_launches_per_prefill,
+              peak_gb=res.peak_bytes / 1e9, host_s_with_init=host_s)
+    print("[lm] " + json.dumps(lm), flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- the whole path, f32, depth 2: kernel vs chunked, uncounted ------
+    cfg2 = dataclasses.replace(cfg, n_layers=2, activ_dtype=torch.float32,
+                               param_dtype=torch.float32)
+    model = init_params(transformer.build_model(cfg2, dev),
+                        torch.Generator(dev).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    cache_len = LM_PROMPT + LM_NEW + 8
+    got = {}
+    for impl in ("flash_pallas", "flash_jnp"):
+        c = dataclasses.replace(cfg2, attention_impl=impl)
+        logits, _ = transformer.prefill(c, model, {"tokens": prompt},
+                                        cache_len)
+        gen = serve_step.greedy_generate(c, model, prompt, 8, cache_len)
+        got[impl] = (logits, gen)
+    check(bool(torch.isfinite(got["flash_pallas"][0]).all()),
+          "whole path: non-finite logits")
+    whole_err = held(got["flash_pallas"][0], got["flash_jnp"][0],
+                     LM_WHOLE_PATH_TOL,
+                     "whole path f32 depth 2: last-token logits, kernel vs "
+                     "chunked")
+    agree = float((got["flash_pallas"][1] == got["flash_jnp"][1])
+                  .float().mean())
+    print(f"[check] whole path f32 depth 2: greedy tokens agree "
+          f"{agree:.4f} of {got['flash_jnp'][1].numel()}", flush=True)
+    del model, got, logits, gen
+    torch.cuda.empty_cache()
+
+    # ---- the kernel against its plain version, uncounted -----------------
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    gen = torch.Generator(dev).manual_seed(2)
+
+    def qkv(b, s, h, kv, hd, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+    def held_out(got, want, dtype, what):
+        if dtype == torch.float32:
+            return held(got, want, 2e-5, what), None
+        return held_bf16(got, want, what)
+
+    errs, shares = {}, {}
+    shape = f"B{LM_BATCH} S{LM_PROMPT} H{h} KV{kv} hd{hd} window {window}"
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(LM_BATCH, LM_PROMPT, h, kv, hd, dtype)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                          window=window)
+        alone = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                      window=window)
+        name = str(dtype).removeprefix("torch.")
+        errs[name], shares[name] = held_out(
+            out, want, dtype, f"flash {name} {shape}: out (lse on) vs plain")
+        held_out(alone, want, dtype,
+                 f"flash {name} {shape}: out (lse off) vs plain")
+        check(torch.equal(alone, out), f"flash {name}: lse on and off "
+              "differ")
+        if dtype == torch.float32:
+            errs["lse"] = held(lse, want_lse, 1e-4,
+                               f"flash {name} {shape}: lse vs plain")
+        del q, k, v, out, lse, alone, want, want_lse
+    # the bf16 limit's power: one key dropped from each full window fails it
+    q, k, v = qkv(LM_BATCH, LM_PROMPT, h, kv, hd, torch.bfloat16)
+    want, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                           window=window)
+    dropped, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                              window=window - 1)
+    gap = (dropped.double() - want.double()).abs()
+    control = dict(max_abs_err=float(gap.max()), share=float(
+        (gap / (BF16_ATOL + BF16_RTOL * want.double().abs())).max()))
+    print(f"[check] bf16 limit control, window {window - 1} against "
+          f"{window}: max|err| {control['max_abs_err']:.3e}, "
+          f"{control['share']:.2f} of the limit (must exceed 1)", flush=True)
+    check(control["share"] > 1.0, "the bf16 limit passes one key dropped")
+    del q, k, v, want, dropped, gap
+    for b, s, hh, kk, d, causal, win in [(2, 320, 4, 4, 64, True, None),
+                                        (2, 320, 8, 2, 128, False, None),
+                                        (1, 256, 4, 1, 256, True, 100),
+                                        (2, 300, 8, 8, 80, False, 64)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = qkv(b, s, hh, kk, d, dtype)
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=win)
+            want, want_lse = fa.flash_attention_fwd_plain(
+                q, k, v, causal=causal, window=win)
+            what = (f"flash {str(dtype).removeprefix('torch.')} B{b} S{s} "
+                    f"H{hh} KV{kk} hd{d} causal={causal} window={win}")
+            held_out(out, want, dtype, what + ": out vs plain")
+            held(lse, want_lse, 1e-4, what + ": lse vs plain")
+
+    # ---- timing at the full-width layer shapes, bf16, uncounted ----------
+    q, k, v = qkv(LM_BATCH, LM_PROMPT, h, kv, hd, torch.bfloat16)
+    kern_ms = median_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, causal=True, window=window), 10, 2)
+    lse_off_ms = median_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, window=window), 10, 2)
+    plain_ms = median_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=True, window=window), 3, 1)
+    pos = torch.arange(LM_PROMPT, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_ms = median_ms(library, 5, 1)
+    held(library().transpose(1, 2), fa.flash_attention(
+        q, k, v, causal=True, window=window), 0.06,
+        "scaled_dot_product_attention yardstick vs kernel (bf16)")
+    bound = attention_bound(LM_BATCH, LM_PROMPT, LM_PROMPT, h, kv, hd,
+                            causal=True, window=window, bytes_per_el=2)
+    row = dict(shape=[LM_BATCH, LM_PROMPT, h, kv, hd], window=window,
+               dtype="bfloat16", ms=kern_ms, ms_lse_off=lse_off_ms,
+               plain_ms=plain_ms,
+               library_ms=lib_ms, **bound,
+               roofline_share=bound["bound_ms"] / kern_ms,
+               tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
+               smem_bytes=fa.smem_bytes(hd), launches=launches)
+    print("[timing] " + json.dumps(row), flush=True)
+    return {
+        "name": "flash_attention", "route": "cuda", "source": SOURCE_FA,
+        "replaces": REPLACES_FA, "launches": launches,
+        "max_abs_err": max(errs["float32"], errs["bfloat16"]),
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": lib_ms,
+        "times_are": "one forward call at h2o-danube-1.8b's prefill layer "
+                     "shapes (B4 S8192 H32 KV8 hd80, causal, window 4096), "
+                     "bf16, with the lse (the instantiation the path "
+                     "launches); ms_lse_off is the lse-off instantiation; "
+                     "library_ms is scaled_dot_product_attention with the "
+                     "same boolean mask",
+        "ms_lse_off": lse_off_ms,
+        "max_abs_err_bf16": errs["bfloat16"],
+        "bf16_share_of_limit": shares["bfloat16"],
+        "bf16_limit": [BF16_ATOL, BF16_RTOL],
+        "bf16_limit_control_window_minus_1": control,
+        "max_abs_err_f32": errs["float32"], "max_abs_err_lse_f32":
+        errs["lse"], "max_abs_err_whole_path_f32": whole_err,
+        "greedy_agreement_whole_path": agree, "lm": lm, "timing": row}
 
 
 if __name__ == "__main__":

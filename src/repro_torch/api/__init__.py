@@ -5,9 +5,19 @@
     prog = compile_stencil(spec, shape, t=4, boundary=Boundary.periodic())
     y = prog.run(x, 64)
 
+The LM half has the same front door for attention:
+
+    prog = compile_attention(heads=8, kv_heads=2, head_dim=64)
+    out = prog.apply(q, k, v)            # the CUDA flash kernel on the card
+
 Programs run on the card by default; ``device="cpu"`` runs the plain
 PyTorch version.  Importing this package initializes no CUDA context.
 """
+from repro_torch.api.attention import (AttentionProgram, AttentionSpec,
+                                       attention_cache_stats,
+                                       attention_program_for,
+                                       clear_attention_caches,
+                                       compile_attention)
 from repro_torch.api.boundary import Boundary
 from repro_torch.api.define import from_operator, parse_taps, spec_from_json
 from repro_torch.api.program import (ProgramCache, StencilProgram,
@@ -20,12 +30,18 @@ from repro_torch.core.stencil_spec import (StencilSpec, define_stencil,
                                            spec_from_reference)
 
 __all__ = [
+    "AttentionProgram",
+    "AttentionSpec",
     "Boundary",
     "ProgramCache",
     "StencilProgram",
     "StencilSpec",
+    "attention_cache_stats",
+    "attention_program_for",
     "cache_stats",
+    "clear_attention_caches",
     "clear_caches",
+    "compile_attention",
     "compile_stencil",
     "define_stencil",
     "from_operator",

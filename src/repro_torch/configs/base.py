@@ -1,0 +1,140 @@
+"""ArchConfig: the port's twin of the reference's architecture config.
+
+The port keeps its own copy because the reference's ``configs/base.py``
+imports jax.  Field names and defaults are the reference's; dtypes are
+``torch`` dtypes.  The sharding helpers (``with_mesh``, ``input_specs``,
+``input_pspecs``) are not ported: sharding is ROADMAP Queue 1 item 8.
+The mesh hint fields stay, as data, so a config means the same in both
+packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+}
+
+_REGISTRY: dict[str, "ArchConfig"] = {}
+
+
+def register(cfg: "ArchConfig") -> "ArchConfig":
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> "ArchConfig":
+    return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense|moe|ssm|hybrid|encoder|vlm
+    n_layers: int
+    d_model: int
+    n_heads: int = 1
+    kv_heads: int = 1
+    head_dim: int = 64
+    d_ff: int = 0
+    vocab: int = 32000
+    act: str = "swiglu"
+    norm: str = "rms"
+    qk_norm: bool = False
+    swa_window: int | None = None
+    rope_theta: float | None = 10000.0
+    embed_scale: bool = False
+    tie_embeddings: bool = True
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_aux_weight: float = 0.01
+    moe_capacity: float = 1.25
+    # SSM
+    ssm_state: int = 0
+    ssm_inner: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_chunk: int = 128
+    # hybrid
+    attn_every: int = 6
+    # vlm stub frontend
+    vlm_patch_dim: int = 1024
+    vlm_patches: int = 256
+    # execution
+    activ_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.bfloat16
+    remat: bool = True
+    attention_impl: str = "flash_jnp"   # flash_jnp | flash_pallas |
+    # boundary_stub; flash_pallas runs the port's CUDA flash kernel
+    ssm_impl: str = "chunked_jnp"
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 512
+    microbatches: int = 1
+    schedule: str = "cosine"         # cosine | wsd (minicpm)
+    sharding: str = "tp"
+    # mesh hints (kept as data; the port runs on one device for now)
+    dp_axes: Any = ("data",)
+    mesh_dp: int = 1
+    mesh_model: int = 1
+    source: str = ""                 # provenance note
+
+    # ------------------------------------------------------------- derived --
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_inner // self.ssm_head_dim if self.ssm_inner else 0
+
+    @property
+    def n_experts_padded(self) -> int:
+        if not self.n_experts:
+            return 0
+        return ((self.n_experts + 15) // 16) * 16
+
+    def n_params(self) -> int:
+        from repro_torch.models import transformer
+        from repro_torch.models.params import tree_count
+        return tree_count(transformer.param_defs(self))
+
+    # ------------------------------------------------------------- shaping --
+    def supports(self, shape_name: str) -> tuple[bool, str]:
+        kind = SHAPES[shape_name]["kind"]
+        if self.family == "encoder" and kind == "decode":
+            return False, "encoder-only: no decode step"
+        if shape_name == "long_500k":
+            subq = self.family in ("ssm", "hybrid") or self.swa_window
+            if not subq:
+                return False, "pure full-attention: long_500k skipped"
+        return True, ""
+
+    def reduced(self) -> "ArchConfig":
+        """CPU-sized config of the same family for smoke tests."""
+        kw = dict(
+            n_layers=4 if self.family == "hybrid" else 2,
+            d_model=64, n_heads=4, kv_heads=2, head_dim=16,
+            d_ff=128, vocab=256,
+            activ_dtype=torch.float32, param_dtype=torch.float32,
+            remat=False, q_chunk=64, kv_chunk=64, loss_chunk=64,
+            ssm_chunk=16, attn_every=2,
+            vlm_patch_dim=32, vlm_patches=8, microbatches=1,
+        )
+        if self.family == "moe":
+            kw.update(n_experts=8, top_k=2, moe_capacity=16.0)
+        if self.family in ("ssm", "hybrid"):
+            kw.update(ssm_inner=128, ssm_head_dim=32, ssm_state=16,
+                      ssm_groups=1)
+        if self.family == "encoder":
+            kw.update(kv_heads=4)   # hubert is MHA
+        if self.kv_heads == self.n_heads:
+            kw.update(kv_heads=4)
+        return dataclasses.replace(self, **kw)

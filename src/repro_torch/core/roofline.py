@@ -145,3 +145,45 @@ def min_tile_width(spec: StencilSpec, hw: HardwareModel, *,
     sub-dominant."""
     a_sm = spec.a_sm_rst if rst else spec.a_sm
     return 4 * spec.a_gm * hw.b_sm / (a_sm * hw.b_gm) * spec.radius
+
+
+# ------------------------------------------------------------- attention --
+# NVIDIA H100 SXM5 datasheet: 989 TFLOP/s dense bf16 on the tensor cores
+# (a datasheet number, not a measurement; it assumes the 700 W limit).
+H100_BF16_TENSOR_FLOPS = 989e12
+
+
+def attention_hbm_bytes(b, s, sk, h, kv, hd, bytes_per_el=2) -> int:
+    """Kernel device-memory traffic of one forward call: q, k, v read once
+    and o written once (the reference's ``attention_hbm_bytes``)."""
+    return bytes_per_el * (b * s * h * hd * 2 + 2 * b * sk * kv * hd)
+
+
+def attention_valid_pairs(s: int, sk: int, *, causal: bool,
+                          window: int | None) -> int:
+    """Σ over the ``s`` queries of the keys the mask keeps (per batch row
+    and head): causal keeps ``k <= q``, a window ``k > q - window``."""
+    total = 0
+    for q in range(s):
+        hi = min(sk - 1, q) if causal else sk - 1
+        lo = max(0, q - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_bound(b, s, sk, h, kv, hd, *, causal: bool,
+                    window: int | None, bytes_per_el: int,
+                    flops_per_s: float = H100_BF16_TENSOR_FLOPS,
+                    hw: HardwareModel = H100) -> dict:
+    """The least time one forward call could take on ``hw``: the larger
+    of its bytes over the memory rate and its masked work, ``4·hd`` flops
+    per valid (query, key) pair per (batch row, head), over
+    ``flops_per_s``."""
+    pairs = attention_valid_pairs(s, sk, causal=causal, window=window)
+    flops = 4 * hd * pairs * b * h
+    nbytes = attention_hbm_bytes(b, s, sk, h, kv, hd, bytes_per_el)
+    t_bytes, t_ops = nbytes / hw.b_gm, flops / flops_per_s
+    return dict(pairs_per_head=pairs, flops=flops, bytes=nbytes,
+                bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")

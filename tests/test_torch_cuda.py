@@ -188,3 +188,118 @@ def test_stream_apply_matches_oracle(cuda_device, name):
     assert st3.ebisu3d_padded.launches == before + 1
     torch.testing.assert_close(y, ref.reference(x, prog.spec, 4),
                                atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------------- flash attention ----
+def qkv(b, s, h, kv, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(device=device, dtype=dtype)
+            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda_device, hd, groups, causal, window,
+                                    dtype):
+    """Out and lse of the kernel against its plain version; S = 200 is
+    no multiple of the 64-row tile.  Tolerances: the reference suite's
+    2e-5 for f32 out, 1e-4 for lse; bf16 out within 1e-4 + 2^-6·|want|
+    per element, two units in the last place (both round one float32
+    result to bf16, so a sound kernel is at most one unit away)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(2, 200, 2 * groups, 2, hd, dtype, cuda_device)
+    before = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 1
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                  window=window)
+    atol, rtol = ((2e-5, 2e-5) if dtype == torch.float32
+                  else (1e-4, 2.0 ** -6))
+    assert out.dtype == dtype and lse.shape == (2, 2 * groups, 200)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    alone = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 2
+    assert torch.equal(alone, out)          # the lse-off instantiation
+
+
+@pytest.mark.cuda
+def test_flash_kernel_strided_inputs_and_fully_masked_rows(cuda_device):
+    """q, k, v read in place from a fused (B, S, 3, H, hd) buffer; S >=
+    Sk + window gives rows with no valid key (the reference averages
+    every key for them)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    fused = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 32),
+                                                 dtype=np.float32))
+    fused = fused.to(cuda_device)
+    q, k, v = fused[:, :, 0], fused[:, :, 1, :2], fused[:, :, 2, :2]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                  window=24)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
+    kk, vv = k[:, :40].contiguous(), v[:, :40].contiguous()
+    out, _ = fa.flash_attention_fwd(q.contiguous(), kk, vv, causal=True,
+                                    window=8)
+    want, _ = fa.flash_attention_fwd_plain(q, kk, vv, causal=True, window=8)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_run(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(1, 64, 2, 1, 72, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v = qkv(1, 64, 2, 1, 288, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="up to 256"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v = qkv(1, 64, 2, 1, 64, torch.float16, cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["h2o-danube-1.8b", "qwen3-14b"])
+def test_reduced_serve_kernel_path_matches_chunked(cuda_device, name):
+    """The reduced-width serving path on the card: the prefill with the
+    kernel (``flash_pallas``) against the chunked path (``flash_jnp``),
+    same weights; greedy tokens equal."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import serve_step
+
+    cfg = dataclasses.replace(C.get_config(name).reduced(), q_chunk=32,
+                              kv_chunk=32, swa_window=48)
+    model = init_params(transformer.build_model(cfg, cuda_device),
+                        torch.Generator(cuda_device).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    out = {}
+    for impl in ("flash_pallas", "flash_jnp"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        before = fa.flash_attention_fwd.launches
+        logits, _ = transformer.prefill(c, model, {"tokens": toks}, 140)
+        launched = fa.flash_attention_fwd.launches - before
+        assert launched == (cfg.n_layers if impl == "flash_pallas" else 0)
+        out[impl] = (logits, serve_step.greedy_generate(c, model, toks, 4,
+                                                        140))
+    torch.testing.assert_close(out["flash_pallas"][0], out["flash_jnp"][0],
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(out["flash_pallas"][1], out["flash_jnp"][1])

@@ -178,11 +178,18 @@ def test_hardware_for_cpu_is_the_datasheet_model():
 
 
 def test_import_gate():
-    """``import repro_torch`` (and its API) pulls in no jax, no triton,
-    nothing of the reference package, and initializes no CUDA."""
+    """``import repro_torch`` (its API, and the LM serving modules) pulls
+    in no jax, no triton, nothing of the reference package, and
+    initializes no CUDA."""
     code = textwrap.dedent("""
         import sys
         import repro_torch, repro_torch.api, repro_torch.launch.stencil_run
+        import repro_torch.configs, repro_torch.api.attention
+        import repro_torch.kernels.flash_attention, repro_torch.core.roofline
+        import repro_torch.core.online_softmax
+        import repro_torch.models.params, repro_torch.models.layers
+        import repro_torch.models.attention, repro_torch.models.transformer
+        import repro_torch.serve.serve_step, repro_torch.launch.serve
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
