@@ -2,9 +2,9 @@
 """Smoke test and measurement of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm)
+    python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm train)
 
-It builds the port's three CUDA kernels from ``src/repro_torch/kernels/csrc``
+It builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, started together), then drives the port's paths
 through the entry points a user calls, each in its own counted run:
 
@@ -22,7 +22,13 @@ through the entry points a user calls, each in its own counted run:
   to a batch of 4 prompts of 8192 tokens and decodes 32 greedy tokens,
   with ``attention_impl="flash_pallas"``, so every prefill layer launches
   the CUDA flash kernel (24 per prefill; one warm-up and two timed
-  prefills).
+  prefills);
+* training (``flash_attention_bwd``): ``launch.train.train`` trains
+  h2o-danube-1.8b at the same widths (bf16 parameters and activations,
+  remat, its own 2 microbatches) for 3 AdamW steps at batch 2 × 8192
+  tokens (so the 4096 window binds) with no checkpoint directory:
+  every layer launches the flash forward kernel twice per microbatch
+  (forward and remat recompute) and each backward kernel once.
 
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
@@ -34,21 +40,30 @@ stencil kernel against its plain version on the main path's own padded
 inputs (the 3-D kernel also against a second launch, bit for bit); the
 whole LM path in f32 at full width and depth 2, kernel against the chunked
 attention path (last-token logits < 1e-4, greedy agreement printed); the
-flash kernel against its plain version at the full-width layer shapes
+whole training path in f32 at full width and depth 2, kernels against the
+chunked path (loss < 1e-4, each gradient leaf within 1e-4 of its largest
+|value|, parameters after one AdamW step < 2e-4); the flash forward and
+backward kernels against their plain versions at the full-width layer shapes
 (f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
 element, two units in the last place, with a control that the limit
-refuses one key dropped from each window; both instantiations) and at
-small ones (GQA 1, bidirectional, hd 64/128/256).  Timings use CUDA
+refuses one key dropped from each window; both instantiations; the
+backward's gradients: f32 < 1e-4, bf16 within the same per-element limit,
+with the window − 1 control) and at small ones (GQA 1/4/8, bidirectional,
+hd 64/128/256, a window, S no multiple of 64).  Timings use CUDA
 events (warm-up, then the median): each kernel's ms, its plain version's,
 and a one-call yardstick the port never calls, ``library_ms``: ``t``
 chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
 ``scaled_dot_product_attention`` with the same boolean mask and
-``enable_gqa=True`` for attention.  The bound of a stencil sweep is the
+``enable_gqa=True`` for attention (its backward alone, by
+``torch.autograd.grad``, for the backward kernel, with the backend that
+ran it printed).  The bound of a stencil sweep is the
 larger of its bytes (the domain read once, the padded layout written
 once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
 (34 fp64); of an attention call, the larger of q, k, v read and o written
 once over 3.35 TB/s and ``4·hd`` flops per (query, key) pair the mask
-keeps over 989 TFLOP/s dense bf16 (H100 SXM datasheet peaks).  The 2-D
+keeps over 989 TFLOP/s dense bf16 (H100 SXM datasheet peaks); of a
+backward call, q, k, v, o, do and lse read and dq, dk, dv written once,
+and ``10·hd`` flops per kept pair.  The 2-D
 rows also give ``bound_copy_ms`` (the measured device-to-device copy rate
 in place of 3.35 TB/s) and ``ms_f32_at_f64_tile`` (the f32 sweep at the
 f64 plan's smaller tile, which tells the tile's cost from the type's).
@@ -61,10 +76,12 @@ so it does without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -76,10 +93,22 @@ SOURCE_3D = "src/repro_torch/kernels/csrc/stencil3d.cu"
 REPLACES_FA = ("src/repro/kernels/flash_attention.py:35 and "
                "src/repro/kernels/flash_attention.py:127")
 SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+REPLACES_FA_BWD = "src/repro/kernels/flash_attention.py:140"
+SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 # the LM phase: h2o-danube-1.8b at its published widths, served
 LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_REPEATS = 4, 8192, 32, 2
 LM_WHOLE_PATH_TOL = 1e-4     # f32 last-token logits, kernel vs chunked
+# the train phase: h2o-danube-1.8b at its published widths, trained
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 2, 8192
+TRAIN_LOSS_TOL = 1e-4        # f32 whole path, kernels vs chunked
+TRAIN_GRAD_TOL = 1e-4        # × the leaf's largest |value|
+TRAIN_PARAM_TOL = 2e-4       # the reference's microbatch test tolerance
+# AdamW's first step moves each parameter by about lr·sign(g), so a
+# gradient element within noise of 0 can flip its step between the two
+# paths: at lr 1e-4 such a flip stays under TRAIN_PARAM_TOL
+TRAIN_CHECK_LR = 1e-4
 # bf16 out, kernel vs plain: |err| <= atol + rtol·|want| per element.  Both
 # round one float32 result to bf16, so a sound kernel is at most one unit
 # in the last place (2^-7·|want|) away; the limit allows two.
@@ -153,9 +182,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    phases = sys.argv[1:] or ["2d", "3d", "lm"]
-    check(set(phases) <= {"2d", "3d", "lm"},
-          f"unknown phases {phases}; pass any of 2d 3d lm, or none for all")
+    phases = sys.argv[1:] or ["2d", "3d", "lm", "train"]
+    check(set(phases) <= {"2d", "3d", "lm", "train"},
+          f"unknown phases {phases}; pass any of 2d 3d lm train, or none "
+          "for all")
     entries = []
     if "2d" in phases:
         entries.append(two_d(dev))
@@ -164,6 +194,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "lm" in phases:
         entries.append(lm_serve(dev, held))
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        entries.append(lm_train(dev))
     print(f"[card] {smi_line()}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -222,6 +255,8 @@ def two_d(dev) -> dict:
     st.ebisu2d_padded.launches = 0
     st3.ebisu3d_padded.launches = 0
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkdv.launches = 0
     for name in names:
         spec = get(name)
         t = TABLE3_DEPTHS[name]["ebisu"]
@@ -248,7 +283,9 @@ def two_d(dev) -> dict:
     launches = st.ebisu2d_padded.launches
     print(f"[main path] stencil2d launches: {launches}", flush=True)
     check(st3.ebisu3d_padded.launches == 0
-          and fa.flash_attention_fwd.launches == 0,
+          and fa.flash_attention_fwd.launches == 0
+          and fa.flash_attention_bwd_dq.launches == 0
+          and fa.flash_attention_bwd_dkdv.launches == 0,
           "the 2-D path launched another kernel")
     # apply = 1 sweep; run(2t+1) = sweeps of t, t, 1 — for every program
     for name, c in cases.items():
@@ -420,6 +457,8 @@ def three_d(dev, held) -> dict:
     st.ebisu2d_padded.launches = 0
     st3.ebisu3d_padded.launches = 0
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkdv.launches = 0
     for name in names:
         spec = get(name)
         t = TABLE3_DEPTHS[name]["ebisu"]
@@ -451,7 +490,9 @@ def three_d(dev, held) -> dict:
     launches = st3.ebisu3d_padded.launches
     print(f"[main path 3-D] stencil3d launches: {launches}", flush=True)
     check(st.ebisu2d_padded.launches == 0
-          and fa.flash_attention_fwd.launches == 0,
+          and fa.flash_attention_fwd.launches == 0
+          and fa.flash_attention_bwd_dq.launches == 0
+          and fa.flash_attention_bwd_dkdv.launches == 0,
           "the 3-D path launched another kernel")
     for name, c in cases.items():
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
@@ -640,6 +681,8 @@ def lm_serve(dev, held) -> dict:
     st.ebisu2d_padded.launches = 0
     st3.ebisu3d_padded.launches = 0
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkdv.launches = 0
     t0 = time.perf_counter()
     res = serve.run(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
                     max_new=LM_NEW, reduced=False, seed=0,
@@ -653,6 +696,9 @@ def lm_serve(dev, held) -> dict:
           f"{1 + LM_REPEATS} prefills)", flush=True)
     check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
           == 0, "the LM path launched a stencil kernel")
+    check(fa.flash_attention_bwd_dq.launches == 0
+          and fa.flash_attention_bwd_dkdv.launches == 0,
+          "the LM serving path launched a backward kernel")
     check(res.kernel_launches_per_prefill == cfg.n_layers,
           f"{res.kernel_launches_per_prefill} flash launches per prefill, "
           f"not {cfg.n_layers}")
@@ -818,6 +864,327 @@ def lm_serve(dev, held) -> dict:
         "max_abs_err_f32": errs["float32"], "max_abs_err_lse_f32":
         errs["lse"], "max_abs_err_whole_path_f32": whole_err,
         "greedy_agreement_whole_path": agree, "lm": lm, "timing": row}
+
+
+def sdpa_backend(run) -> dict:
+    """Which ``scaled_dot_product_attention`` backend ``run`` (a forward
+    and backward) takes: the backends that accept it when it is limited
+    to each in turn, and the CUDA kernels ``torch.profiler`` saw in one
+    default call, longest first."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    accepts = []
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION):
+        try:    # a backend that cannot take the call raises: that is the probe
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # each refusal's reasons
+                run()
+            torch.cuda.synchronize()
+            accepts.append(b.name)
+        except RuntimeError:
+            pass
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        evs = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+            if t > 0:
+                evs.append((t, e.key))
+        kernels = [f"{k[:100]} ({t / 1e3:.3f} ms)"
+                   for t, k in sorted(evs)[::-1][:4]]
+    except Exception as e:   # the profiler is a diagnostic only
+        kernels = [f"not measured (torch.profiler: {e})"]
+    return {"accepting_backends": accepts,
+            "kernels": kernels or ["not measured (no device time)"]}
+
+
+def lm_train(dev) -> dict:
+    """The training path, counted: ``launch.train.train`` trains
+    h2o-danube-1.8b at full width with the flash forward kernel (twice
+    per layer and microbatch, remat) and both backward kernels (once).
+    Then, uncounted: the whole training path in f32 against the chunked
+    path (depth cut to 2), the backward kernels against their plain
+    version at the full-width layer shape and at small ones, and the
+    timing row.  Returns the ``flash_attention_bwd`` entry of the
+    ``kernels`` line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.configs as C
+    from repro_torch.core.roofline import attention_bwd_bound
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import train as trainer
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import batch_for_step
+    from repro_torch.train.train_step import loss_fn, make_train_step
+
+    cfg = C.get_config(TRAIN_ARCH)
+    window, n_micro = cfg.swa_window, cfg.microbatches
+    st.ebisu2d_padded.launches = 0
+    st3.ebisu3d_padded.launches = 0
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkdv.launches = 0
+    t0 = time.perf_counter()
+    params, state, losses = trainer.train(
+        TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        reduced=False, device=dev, attention_impl="flash_pallas",
+        log_every=1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    stats = trainer.train.last_stats
+    fwd = fa.flash_attention_fwd.launches
+    dq_n = fa.flash_attention_bwd_dq.launches
+    dkdv_n = fa.flash_attention_bwd_dkdv.launches
+    print(f"[main path train] flash launches: forward {fwd}, backward dQ "
+          f"{dq_n}, dK/dV {dkdv_n}", flush=True)
+    check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
+          == 0, "the training path launched a stencil kernel")
+    per = cfg.n_layers * n_micro * TRAIN_STEPS
+    check(fwd == 2 * per, f"forward kernel launched {fwd} times, not "
+          f"{2 * per} (layers × microbatches × steps × 2)")
+    check(dq_n == per and dkdv_n == per, f"backward kernels launched "
+          f"{dq_n} and {dkdv_n} times, not {per}")
+    check(len(losses) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + stats.grad_norms),
+        f"training losses {losses}, grad norms {stats.grad_norms}")
+    print(f"[check] train: losses {losses}, grad norms "
+          f"{stats.grad_norms}: finite", flush=True)
+    train = dict(arch=TRAIN_ARCH, n_params=cfg.n_params(), steps=TRAIN_STEPS,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=n_micro,
+                 remat=cfg.remat, dtype="bfloat16", losses=losses,
+                 grad_norms=stats.grad_norms, step_ms=stats.step_ms,
+                 timed_steps=stats.timed_steps,
+                 tokens_per_s=stats.tokens_per_s,
+                 peak_gb=stats.peak_bytes / 1e9, host_s_with_init=host_s,
+                 launches_fwd=fwd, launches_dq=dq_n, launches_dkdv=dkdv_n)
+    print("[train] " + json.dumps(train), flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+    # ---- the whole path, f32, depth 2: kernels vs chunked, uncounted ----
+    cfg2 = dataclasses.replace(cfg, n_layers=2, activ_dtype=torch.float32,
+                               param_dtype=torch.float32)
+    model = init_params(transformer.build_model(cfg2, dev),
+                        torch.Generator(dev).manual_seed(0))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    shapes = {"tokens": (TRAIN_BATCH, TRAIN_SEQ),
+              "labels": (TRAIN_BATCH, TRAIN_SEQ)}
+    batch = batch_for_step(cfg2, "train_4k", 0, seed=1, reduced_shapes=shapes,
+                           device=dev)
+    micro = {k: v[:TRAIN_BATCH // n_micro] for k, v in batch.items()}
+    got = {}
+    for impl in ("flash_pallas", "flash_jnp"):
+        c = dataclasses.replace(cfg2, attention_impl=impl)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init[n])
+        loss = loss_fn(c, model, micro)
+        names, leaves = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, leaves)
+        ocfg = opt.OptConfig(lr=TRAIN_CHECK_LR, warmup=1, total_steps=1,
+                             schedule=c.schedule)
+        ostate = opt.init_state(model)
+        make_train_step(c, ocfg)(model, ostate, batch)
+        got[impl] = dict(loss=float(loss.detach()), grads=dict(zip(names,
+                                                                   grads)),
+                         params={n: p.detach().clone()
+                                 for n, p in model.named_parameters()})
+        del ostate, loss, grads
+        torch.cuda.empty_cache()
+    k_, c_ = got["flash_pallas"], got["flash_jnp"]
+    loss_err = abs(k_["loss"] - c_["loss"])
+    check(math.isfinite(k_["loss"]) and loss_err < TRAIN_LOSS_TOL,
+          f"whole training path f32 depth 2: loss {k_['loss']} vs "
+          f"{c_['loss']}")
+    print(f"[check] whole training path f32 depth 2: loss {k_['loss']:.6f}, "
+          f"kernels vs chunked |err| {loss_err:.3e} (< {TRAIN_LOSS_TOL:g})",
+          flush=True)
+    grad_share = 0.0
+    for n, g in k_["grads"].items():
+        want = c_["grads"][n]
+        check(bool(torch.isfinite(g).all()), f"grad {n}: non-finite")
+        lim = TRAIN_GRAD_TOL * float(want.abs().max())
+        err = float((g.double() - want.double()).abs().max())
+        check(err <= lim, f"grad {n}: max|err| {err:.3e} > {lim:.3e}")
+        grad_share = max(grad_share, err / lim if lim else 0.0)
+    print(f"[check] whole training path f32 depth 2: every gradient leaf "
+          f"within {TRAIN_GRAD_TOL:g} of its largest |value| (at most "
+          f"{grad_share:.4f} of that limit)", flush=True)
+    param_err = 0.0
+    for n, p in k_["params"].items():
+        check(bool(torch.isfinite(p).all()), f"param {n}: non-finite")
+        param_err = max(param_err,
+                        float((p - c_["params"][n]).abs().max()))
+    check(param_err < TRAIN_PARAM_TOL, f"params after one AdamW step: "
+          f"max|err| {param_err:.3e} >= {TRAIN_PARAM_TOL:g}")
+    moved = float((k_["params"]["head"] - init["head"]).abs().median())
+    check(moved > 0.5 * TRAIN_CHECK_LR, f"the step moved the head by a "
+          f"median {moved:.3e} only")
+    print(f"[check] whole training path f32 depth 2: every parameter after "
+          f"the step within {TRAIN_PARAM_TOL:g} (max|err| {param_err:.3e}); "
+          f"the head moved by a median {moved:.3e}", flush=True)
+    whole = dict(loss=k_["loss"], loss_err=loss_err,
+                 grad_share_of_limit=grad_share, param_err=param_err,
+                 head_median_step=moved)
+    del model, init, got, k_, c_, batch, micro
+    torch.cuda.empty_cache()
+
+    # ---- the backward kernels against their plain version, uncounted ----
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def inputs(b, s, h, kv, hd, dtype, causal, win):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                                (b, s, kv, hd), (b, s, h, hd)))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
+        return q, k, v, do, out, lse
+
+    def vs_plain(args, causal, win, dtype, what):
+        got = fa.flash_attention_bwd(*args, causal=causal, window=win)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_plain(*args, causal=causal, window=win)
+        errs, shares = [], []
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.dtype == dtype and a.shape == b.shape, f"{what} {name}")
+            if dtype == torch.float32:
+                errs.append(held(a, b, 1e-4, f"{what}: {name} vs plain"))
+            else:
+                e, sh = held_bf16(a, b, f"{what}: {name} vs plain")
+                errs.append(e)
+                shares.append(sh)
+        return max(errs), max(shares, default=None)
+
+    shape = f"B1 S{TRAIN_SEQ} H{h} KV{kv} hd{hd} window {window}"
+    errs, shares = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        args = inputs(1, TRAIN_SEQ, h, kv, hd, dtype, True, window)
+        errs[name], shares[name] = vs_plain(args, True, window, dtype,
+                                            f"flash bwd {name} {shape}")
+        del args
+    # the bf16 limit's power: the gradient of the window - 1 attention
+    args = inputs(1, TRAIN_SEQ, h, kv, hd, torch.bfloat16, True, window)
+    want = fa.flash_attention_bwd_plain(*args, causal=True, window=window)
+    q, k, v, do, _, _ = args
+    out1, lse1 = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                              window=window - 1)
+    other = fa.flash_attention_bwd_plain(q, k, v, do, out1, lse1,
+                                         causal=True, window=window - 1)
+    control = {}
+    for name, a, b in zip(("dq", "dk", "dv"), other, want):
+        gap = (a.double() - b.double()).abs()
+        control[name] = dict(max_abs_err=float(gap.max()), share=float(
+            (gap / (BF16_ATOL + BF16_RTOL * b.double().abs())).max()))
+    print(f"[check] bf16 backward limit control, window {window - 1} against "
+          f"{window}: {json.dumps(control)} (each share must exceed 1)",
+          flush=True)
+    check(all(c["share"] > 1.0 for c in control.values()),
+          "the bf16 limit passes the window - 1 gradient")
+    del args, want, other, q, k, v, do, out1, lse1
+    for b, s, hh, kk, d, causal, win in [(2, 200, 4, 4, 64, True, None),
+                                        (2, 200, 8, 2, 128, False, None),
+                                        (1, 256, 8, 1, 256, True, 100),
+                                        (2, 300, 8, 8, 80, False, 64),
+                                        (1, 130, 4, 1, 16, True, 24)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            vs_plain(inputs(b, s, hh, kk, d, dtype, causal, win), causal, win,
+                     dtype, f"flash bwd {str(dtype).removeprefix('torch.')} "
+                     f"B{b} S{s} H{hh} KV{kk} hd{d} causal={causal} "
+                     f"window={win}")
+
+    # ---- timing at the training layer shape, bf16, uncounted ------------
+    q, k, v, do, out, lse = inputs(1, TRAIN_SEQ, h, kv, hd, torch.bfloat16,
+                                   True, window)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    fwd_ms = median_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, causal=True, window=window), 10, 2)
+    kern_ms = median_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, do, out, lse, causal=True, window=window), 10, 2)
+    dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, dq, causal=True, window=window), 10, 2)
+    dkdv_ms = median_ms(lambda: fa.flash_attention_bwd_dkdv(
+        q, k, v, do, lse, delta, dk, dv, causal=True, window=window), 10, 2)
+    plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, do, out, lse, causal=True, window=window), 3, 1)
+    pos = torch.arange(TRAIN_SEQ, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    backend = sdpa_backend(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                       dot))
+    print(f"[timing] scaled_dot_product_attention backward: "
+          f"{json.dumps(backend)}", flush=True)
+    out_t = sdpa()
+    lib_ms = median_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dot, retain_graph=True), 5, 1)
+    lib = torch.autograd.grad(out_t, (qt, kt, vt), dot)
+    mine = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                  window=window)
+    yard = {}
+    for name, a, b in zip(("dq", "dk", "dv"), mine, lib):
+        yard[name] = float((a.double() - b.transpose(1, 2).double()).abs()
+                           .max() / b.double().abs().max())
+    print(f"[check] SDPA backward yardstick vs kernels (bf16): max|err| / "
+          f"max|value| {json.dumps(yard)} (< 0.02)", flush=True)
+    check(all(x < 0.02 for x in yard.values()),
+          "the SDPA backward yardstick disagrees with the kernels")
+    bound = attention_bwd_bound(1, TRAIN_SEQ, TRAIN_SEQ, h, kv, hd,
+                                causal=True, window=window, bytes_per_el=2)
+    attn_ms = 2 * cfg.n_layers * n_micro * fwd_ms \
+        + cfg.n_layers * n_micro * kern_ms
+    row = dict(shape=[1, TRAIN_SEQ, h, kv, hd], window=window,
+               dtype="bfloat16", ms=kern_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, **bound,
+               roofline_share=bound["bound_ms"] / kern_ms,
+               tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
+               fwd_ms_at_train_shape=fwd_ms,
+               smem_bytes=[fa.bwd_smem_bytes(0, hd), fa.bwd_smem_bytes(1, hd)],
+               flash_ms_per_step=attn_ms,
+               flash_share_of_step=attn_ms / stats.step_ms,
+               sdpa_backward=backend)
+    print("[timing] " + json.dumps(row), flush=True)
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": SOURCE_FA_BWD, "replaces": REPLACES_FA_BWD,
+        "launches": dkdv_n, "launches_dq": dq_n, "launches_dkdv": dkdv_n,
+        "max_abs_err": max(errs["float32"], errs["bfloat16"]),
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": lib_ms,
+        "times_are": "one backward call (delta, the dQ kernel and the dK/dV "
+                     "kernel) at h2o-danube-1.8b's training layer shape (B1 "
+                     "S8192 H32 KV8 hd80, causal, window 4096), bf16; "
+                     "library_ms is torch.autograd.grad through "
+                     "scaled_dot_product_attention with the same boolean "
+                     "mask",
+        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+        "max_abs_err_f32": errs["float32"],
+        "max_abs_err_bf16": errs["bfloat16"],
+        "bf16_share_of_limit": shares["bfloat16"],
+        "bf16_limit_control_window_minus_1": control,
+        "whole_training_path_f32": whole, "train": train, "timing": row}
 
 
 if __name__ == "__main__":

@@ -6,14 +6,17 @@ resolved once into an immutable :class:`AttentionProgram`, memoized in a
 bounded cache, and every execution surface dispatches through it:
 
     prog = compile_attention(heads=8, kv_heads=2, head_dim=64)
-    out  = prog.apply(q, k, v)           # (B, S, H, hd)
+    out  = prog.apply(q, k, v)           # (B, S, H, hd), differentiable
+    dq, dk, dv = prog.grad(q, k, v, do)  # its VJP against do
 
 Implementation selection (``impl=``):
 
-  * ``"cuda"``    — the hand-written CUDA flash kernel
-    (``kernels/flash_attention.py``; the reference's ``"pallas"``).  It
-    refuses chunk-undivisible sequences with the reference's message.
-    On a CPU tensor the kernel's wrapper runs its plain version.
+  * ``"cuda"``    — the hand-written CUDA flash kernels through
+    ``kernels/flash_attention.flash_attention_trainable`` (the forward
+    kernel, and the backward kernels under autograd; the reference's
+    ``"pallas"``).  It refuses chunk-undivisible sequences with the
+    reference's message.  On a CPU tensor the kernels' wrappers run
+    their plain versions.
   * ``"chunked"`` — the plain-torch online-softmax path
     (``models/attention.flash_attention``).
   * ``"dense"``   — ``models/attention.dense_attention``, the oracle.
@@ -172,11 +175,11 @@ class AttentionProgram:
         sp = self.spec
         if impl == "cuda":
             from repro_torch.kernels.flash_attention import (
-                flash_attention_fwd)
+                flash_attention_trainable)
 
             def fn(q, k, v):
-                return flash_attention_fwd(q, k, v, causal=sp.causal,
-                                           window=sp.window)[0]
+                return flash_attention_trainable(q, k, v, causal=sp.causal,
+                                                 window=sp.window)
         elif impl == "chunked":
             from repro_torch.models.attention import flash_attention
 
@@ -197,16 +200,27 @@ class AttentionProgram:
 
     def apply(self, q, k, v):
         """Forward attention: q ``(B, S, H, hd)``, k/v ``(B, Sk, KV,
-        hd)`` → ``(B, S, H, hd)`` in the program's storage dtype."""
+        hd)`` → ``(B, S, H, hd)`` in the program's storage dtype;
+        differentiable in q, k and v."""
         self._check(q, k, v)
-        if torch.is_grad_enabled() and any(
-                x.requires_grad for x in (q, k, v)):
-            raise NotImplementedError(
-                "AttentionProgram is forward-only in repro_torch so far: "
-                "the backward kernel and .grad are ROADMAP Queue 2 item 5 "
-                "— run under torch.no_grad()")
         impl = self._resolve_impl(q.shape[1], k.shape[1], q.device)
         return self._fn(impl)(q, k, v)
+
+    def grad(self, q, k, v, do):
+        """The VJP of :meth:`apply` at (q, k, v) against the cotangent
+        ``do`` → ``(dq, dk, dv)`` in the inputs' dtypes.  For
+        ``impl='cuda'`` this runs the forward kernel (with the lse) and
+        the two backward kernels; other impls differentiate the plain
+        path.  Matches the gradient of the dense oracle (tested)."""
+        self._check(q, k, v)
+        if do.shape != q.shape:
+            raise ValueError(f"cotangent must match q: got do"
+                             f"{tuple(do.shape)} vs q{tuple(q.shape)}")
+        impl = self._resolve_impl(q.shape[1], k.shape[1], q.device)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = self._fn(impl)(*leaves)
+            return torch.autograd.grad(out, leaves, do.to(out.dtype))
 
     # ----------------------------------------------------- introspection ----
     def hbm_bytes(self, b: int, s: int, sk: int) -> int:

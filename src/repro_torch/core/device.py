@@ -1,6 +1,8 @@
 """Where the port runs: the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -18,3 +20,28 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+class Timer:
+    """Times the work of a ``with`` block in ms (``.ms``): CUDA events on
+    the card, synchronised at the exit; the host clock elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            self.a = torch.cuda.Event(enable_timing=True)
+            self.b = torch.cuda.Event(enable_timing=True)
+            self.a.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.b.record()
+            self.b.synchronize()
+            self.ms = self.a.elapsed_time(self.b)
+        else:
+            self.ms = (time.perf_counter() - self.t0) * 1e3

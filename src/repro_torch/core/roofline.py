@@ -187,3 +187,27 @@ def attention_bound(b, s, sk, h, kv, hd, *, causal: bool,
                 bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bwd_bound(b, s, sk, h, kv, hd, *, causal: bool,
+                        window: int | None, bytes_per_el: int,
+                        flops_per_s: float = H100_BF16_TENSOR_FLOPS,
+                        hw: HardwareModel = H100) -> dict:
+    """The least time one backward call could take on ``hw``: the larger
+    of its bytes over the memory rate and its masked work over
+    ``flops_per_s``.  Work: ``10·hd`` flops per valid (query, key) pair
+    per (batch row, head) — the two recomputed products (``q·kᵀ`` and
+    ``do·vᵀ``) and the three gradient products (``ds·k``, ``dsᵀ·q``,
+    ``pᵀ·do``), the least any design does.  Bytes: q, k, v, o and do
+    read once in the storage type, lse read once in float32, dq, dk and
+    dv written once in the storage type."""
+    pairs = attention_valid_pairs(s, sk, causal=causal, window=window)
+    flops = 10 * hd * pairs * b * h
+    # reads q, o, do and k, v; writes dq and dk, dv
+    nbytes = (bytes_per_el * (4 * b * s * h * hd + 4 * b * sk * kv * hd)
+              + 4 * b * h * s)
+    t_bytes, t_ops = nbytes / hw.b_gm, flops / flops_per_s
+    return dict(pairs_per_head=pairs, flops=flops, bytes=nbytes,
+                bytes_ms=t_bytes * 1e3, ops_ms=t_ops * 1e3,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")

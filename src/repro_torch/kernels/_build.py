@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = {"stencil2d": "stencil2d.cu", "stencil3d": "stencil3d.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,17 @@
-"""Flash attention, forward, on the card: the wrapper of the CUDA kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""Flash attention on the card: the wrappers of the CUDA forward kernel
+(``csrc/flash_attention.cu``) and backward kernels
+(``csrc/flash_attention_bwd.cu``), their plain PyTorch versions, and the
+autograd function that joins them.
 
 Counterpart of the reference's Pallas kernels
 ``repro/kernels/flash_attention.py::_kernel`` (launched by
 ``flash_attention_pallas``) and ``::_fwd_kernel_lse`` (launched by
 ``flash_attention_pallas_fwd``): one CUDA source ports both, as two
-instantiations on whether the per-row logsumexp is written.
+instantiations on whether the per-row logsumexp is written.  The
+reference's ``::_bwd_kernel`` (``flash_attention_pallas_bwd``) becomes two
+kernels in ``csrc/flash_attention_bwd.cu``, one query-major for dq and
+one key-major for dk and dv (summed over each GQA group in the kernel),
+and its ``custom_vjp`` becomes :func:`flash_attention_trainable`.
 
     out, lse = flash_attention_fwd(q, k, v, causal=True, window=4096)
 
@@ -21,11 +27,26 @@ q is ``(B, S, H, hd)``, k and v ``(B, Sk, KV, hd)``; out is
     online softmax over kv chunks in plain torch.  No CUDA tensor ever
     takes the plain version.
 
-The reference's ``q_chunk``/``kv_chunk`` do not reach the kernel: its
-tile (64 queries × 64 keys) is its own.  The chunk sizes stay in
-``AttentionSpec``, whose divisibility contract the program enforces.
-The backward kernel (the reference's ``_bwd_kernel``) is slice 4 of the
-port (ROADMAP Queue 2 item 5).
+    dq, dk, dv = flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                     window=4096)
+
+  * On a CUDA tensor, :func:`flash_attention_bwd` makes ``delta =
+    rowsum(do * out)`` in torch (as the reference does outside its
+    kernel) and launches the dQ kernel (``flash_attention_bwd_dq``) and
+    the dK/dV kernel (``flash_attention_bwd_dkdv``), each adding one to
+    its own ``.launches``.  dq, dk and dv come back in the inputs' dtype.
+  * On a CPU tensor it runs :func:`flash_attention_bwd_plain`, the same
+    closed form over kv chunks in float32, with no S × Sk tensor and no
+    autograd of the plain forward.
+
+A query row that keeps no key (possible only when S >= Sk + window)
+gets no gradient from the backward, as in the reference's kernel; the
+dense oracle's autograd would give dv a share of its uniform average.
+
+The reference's ``q_chunk``/``kv_chunk`` do not reach the kernels: their
+tiles (64 queries × 64 keys, 32 keys above hd 128 in the backward) are
+their own.  The chunk sizes stay in ``AttentionSpec``, whose
+divisibility contract the program enforces.
 """
 from __future__ import annotations
 
@@ -34,7 +55,7 @@ import math
 
 import torch
 
-from repro_torch.core.online_softmax import online_softmax
+from repro_torch.core.online_softmax import attention_mask, online_softmax
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256      # FA_MAX_HD in csrc/flash_attention.cu
@@ -163,3 +184,208 @@ def smem_bytes(hd: int) -> int:
     fn = _build.library("flash_attention").flash_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(hd)
+
+
+# ------------------------------------------------------------- backward ----
+def _check_bwd(q, k, v, do, out, lse) -> None:
+    _check(q, k, v)
+    b, s, h, _ = q.shape
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"do and out must match q{tuple(q.shape)}; got "
+                         f"do{tuple(do.shape)} out{tuple(out.shape)}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {s}) float32 (the "
+                         f"forward's); got {tuple(lse.shape)} {lse.dtype}")
+    if not (q.device == do.device == out.device == lse.device):
+        raise ValueError("q, do, out and lse must be on one device")
+
+
+def flash_attention_bwd_plain(q, k, v, do, out, lse, *, causal=True,
+                              window=None):
+    """The plain version: the reference kernel's closed form over kv
+    chunks of 512 in float32 (float64 for float64 inputs) — ``p = exp(s
+    - lse)`` where the mask keeps (else 0), ``ds = p·(do·vᵀ − δ)·scale``
+    with ``δ = rowsum(do∘out)``, then ``dq = Σ ds·k``, ``dk = Σ dsᵀ·q``
+    and ``dv = Σ pᵀ·do`` summed over each GQA group — with no S × Sk
+    tensor and no autograd.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    b, s, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    cd = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kv_chunk = 512
+    qf = q.to(cd).reshape(b, s, kv, g, hd)
+    dof = do.to(cd).reshape(b, s, kv, g, hd)
+    delta = (dof * out.to(cd).reshape(b, s, kv, g, hd)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]           # (b, kv, g, s, 1)
+    lse5 = lse.to(cd).reshape(b, kv, g, s)[..., None]
+    qpos = torch.arange(s, device=dev)
+    dq = torch.zeros((b, kv, g, s, hd), dtype=cd, device=dev)
+    dk = torch.empty((b, sk, kv, hd), dtype=cd, device=dev)
+    dv = torch.empty((b, sk, kv, hd), dtype=cd, device=dev)
+    for k0 in range(0, sk, kv_chunk):
+        kc = k[:, k0:k0 + kv_chunk].to(cd)
+        vc = v[:, k0:k0 + kv_chunk].to(cd)
+        ok = attention_mask(qpos, torch.arange(k0, k0 + kc.shape[1],
+                                               device=dev),
+                            causal=causal, window=window)
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * scale
+        p = torch.where(ok, torch.exp(sc - lse5), 0.0)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vc)
+        ds = p * (dp - delta) * scale
+        dq += torch.einsum("bkgqs,bskd->bkgqd", ds, kc)
+        dk[:, k0:k0 + kc.shape[1]] = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                                  qf)
+        dv[:, k0:k0 + kc.shape[1]] = torch.einsum("bkgqs,bqkgd->bskd", p,
+                                                  dof)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, do, out, lse, *, causal=True, window=None):
+    """The gradients of :func:`flash_attention_fwd` at (q, k, v) against
+    the cotangent ``do``, from its ``out`` and ``lse`` → ``(dq, dk, dv)``
+    in the inputs' dtypes.  CUDA tensors go to the two kernels, CPU
+    tensors to the plain version (see the module docstring)."""
+    _check_bwd(q, k, v, do, out, lse)
+    if window is not None and window < 1:
+        raise ValueError(f"sliding window must be >= 1 token, got {window}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, out, lse,
+                                         causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    flash_attention_bwd_dq(q, k, v, do, lse, delta, dq, causal=causal,
+                           window=window)
+    flash_attention_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, causal=causal,
+                             window=window)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, dq, *, causal, window):
+    """Launch the dQ kernel (CUDA tensors only) into ``dq``."""
+    # the dQ kernel touches no dk/dv: dq stands in for them
+    _launch_bwd(0, q, k, v, do, lse, delta, dq, dq, dq, causal, window)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, *, causal,
+                             window):
+    """Launch the dK/dV kernel (CUDA tensors only) into ``dk`` and ``dv``."""
+    # the dK/dV kernel touches no dq: dk stands in for it
+    _launch_bwd(1, q, k, v, do, lse, delta, dk, dk, dv, causal, window)
+    flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkdv.launches = 0
+
+_BWD_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+                 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_float,
+                                         ctypes.c_void_p])
+
+
+def _bwd_call_args(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
+                   window, stream):
+    """The C arguments of one ``flash_bwd`` call; checks what the kernels
+    do not take.  (The strides array is kept alive by the caller.)"""
+    b, s, h, hd = q.shape
+    _, sk, kv, _ = k.shape
+    check_head_dim(hd)
+    tensors = (q, k, v, do, dq, dk, dv)
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype
+                                         for x in tensors):
+        raise ValueError(
+            f"the CUDA flash kernels read float32 or bfloat16 q, k, v and do "
+            f"of one dtype; got {[x.dtype for x in tensors]}")
+    for name, x in zip(("q", "k", "v", "do", "dq", "dk", "dv"), tensors):
+        if x.stride(3) != 1:
+            raise ValueError(f"{name}'s head_dim must be dense (stride 1), "
+                             f"got strides {x.stride()}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, s) or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({b}, {h}, {s}) "
+                             f"float32 tensor")
+    strides = (ctypes.c_longlong * 21)(*(
+        x.stride(i) for x in tensors for i in range(3)))
+    args = (kernel, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, sk, h, kv, hd,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd), stream)
+    return args, strides
+
+
+def _launch_bwd(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
+                window):
+    if not all(x.device.type == "cuda" for x in (q, k, v, do, lse, delta,
+                                                   dq, dk, dv)):
+        raise ValueError("the flash backward kernels take CUDA tensors only "
+                         "(flash_attention_bwd runs the plain version on "
+                         "the CPU)")
+    lib = _build.library("flash_attention_bwd")
+    fn = lib.flash_bwd
+    fn.argtypes = _BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        args, strides = _bwd_call_args(kernel, q, k, v, do, lse, delta, dq,
+                                       dk, dv, causal, window, stream)
+        err = fn(*args)
+    if err != 0:
+        lib.flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
+        msg = lib.flash_bwd_error_string(err).decode()
+        raise RuntimeError(
+            f"flash_attention backward launch failed ({msg}): "
+            f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal={causal} "
+            f"window={window}")
+
+
+def bwd_smem_bytes(kernel: int, hd: int) -> int:
+    """Shared memory one CTA of backward kernel ``kernel`` (0 dQ, 1
+    dK/dV) takes at ``hd`` (builds the library if needed)."""
+    fn = _build.library("flash_attention_bwd").flash_bwd_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(kernel, hd)
+
+
+# ------------------------------------------------------------- autograd ----
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the lse-on kernel instantiation; backward: the two
+    backward kernels (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, out, lse,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q, k, v, *, causal=True, window=None):
+    """Differentiable flash attention: the counterpart of the reference's
+    ``custom_vjp`` ``flash_attention_trainable``.  Saves q, k, v, out and
+    lse for the backward."""
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -19,14 +19,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import torch
 
 import repro_torch.configs as C
 from repro_torch.api.attention import (attention_cache_stats,
                                        attention_program_for)
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import Timer, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.models import transformer
 from repro_torch.models.params import init_params
@@ -44,30 +43,6 @@ class ServeRun:
     kernel_launches_per_prefill: int   # CUDA flash kernel launches
     peak_bytes: int               # device memory high-water mark (cuda)
     device: str
-
-
-class _Timer:
-    """CUDA events on the card, the host clock elsewhere."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def __enter__(self):
-        if self.cuda:
-            self.a = torch.cuda.Event(enable_timing=True)
-            self.b = torch.cuda.Event(enable_timing=True)
-            self.a.record()
-        else:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self.b.record()
-            self.b.synchronize()
-            self.ms = self.a.elapsed_time(self.b)
-        else:
-            self.ms = (time.perf_counter() - self.t0) * 1e3
 
 
 def run(arch: str, *, batch: int = 4, prompt_len: int = 32,
@@ -104,11 +79,11 @@ def run(arch: str, *, batch: int = 4, prompt_len: int = 32,
 
     t_prefill = t_decode = float("inf")
     for _ in range(max(1, repeats)):
-        with _Timer(device) as t:
+        with Timer(device) as t:
             tok, cache = prefill(params, prompt)
         t_prefill = min(t_prefill, t.ms)
         toks = [tok]
-        with _Timer(device) as t:
+        with Timer(device) as t:
             for i in range(max_new - 1):
                 tok, cache = decode(params, cache, tok[:, None], pos + i)
                 toks.append(tok)

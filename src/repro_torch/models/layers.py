@@ -14,13 +14,13 @@ casts is the reference's, because it decides the bf16 roundings:
 
 ``p`` is anything indexable by the reference's leaf names: a
 ``ParamModule`` or a dict of tensors.  The reference's ``shard`` is a
-no-op without a mesh and is not ported (ROADMAP Queue 1 item 8), nor is
-``chunked_ce_loss`` (training, slice 4).
+no-op without a mesh and is not ported (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import ParamDef
 
@@ -112,3 +112,36 @@ def embed_defs(vocab: int, d_model: int):
 
 def embed_lookup(tokens, table):
     return table[tokens]
+
+
+# --------------------------------------------------------- chunked CE loss --
+def _ce_chunk(h_c, table32, l_c, m_c):
+    logits = torch.einsum("bsd,vd->bsv", h_c.float(), table32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+    return ((lse - gold) * m_c).sum(), m_c.sum()
+
+
+def chunked_ce_loss(hidden, table, labels, mask=None, chunk: int = 512):
+    """Cross-entropy against ``table``'s logits over sequence chunks of
+    ``chunk`` (and a remainder chunk), as the reference's scan does.
+    Logits and logsumexp are float32.  Each chunk runs under
+    ``torch.utils.checkpoint``, so its ``(B, chunk, V)`` logits are
+    recomputed in the backward and the ``(B, S, V)`` tensor never lives
+    whole.  The table is cast to float32 once, so its gradient sums over
+    the chunks in float32.
+
+    hidden: (B, S, d); table: (V, d); labels: (B, S) int; mask: (B, S).
+    """
+    b, s, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    chunk = min(chunk, s)
+    table32 = table.float()
+    tot = cnt = 0.0
+    for c0 in range(0, s, chunk):
+        t, c = checkpoint(_ce_chunk, hidden[:, c0:c0 + chunk], table32,
+                          labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

@@ -10,18 +10,27 @@ through the compile-once front door (``api/attention.py``), so a config
 with ``attention_impl="flash_pallas"`` runs the CUDA flash kernel in
 every prefill layer.
 
+Training: :func:`train_loss` is the reference's (``forward_hidden`` then
+the chunked cross-entropy of ``models/layers.py``).  With ``cfg.remat``
+and grad enabled, each block runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference wraps it in ``jax.checkpoint`` with
+``nothing_saveable``: only the block's input is kept, and the block is
+run again in the backward — so a ``flash_pallas`` config launches the
+flash forward kernel twice per layer and the backward kernels once.
+
 The MoE, SSM, hybrid, encoder and VLM families raise
 ``NotImplementedError`` until their modules are ported (ROADMAP Queue 1
 item 15).  The reference's ``L.shard`` constraints are no-ops without a
-mesh and are dropped; ``train_loss`` comes with training (slice 4), and
-the dry-run stand-in ``attention_impl="boundary_stub"`` with the dry
-runs (item 16): ``attention_program_for`` refuses it.
+mesh and are dropped; the dry-run stand-in
+``attention_impl="boundary_stub"`` comes with the dry runs (item 16):
+``attention_program_for`` refuses it.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.attention import attention_program_for
 from repro_torch.models import attention as attn
@@ -160,16 +169,37 @@ def _embed(cfg, params, tokens):
     return x.to(cfg.activ_dtype)
 
 
+def _block_out(x, bp, cfg, positions):
+    return apply_block(x, bp, cfg, positions=positions)[0]
+
+
 def forward_hidden(cfg, params, batch):
     """Embed + blocks + final norm -> hidden (B, S, d), aux loss (0 for
-    the dense family)."""
+    the dense family).  Differentiable; each block is rematerialised in
+    the backward when ``cfg.remat``."""
     _dense_only(cfg)
     x = _embed(cfg, params, batch["tokens"])
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp in params["blocks"]:
-        x, _ = apply_block(x, bp, cfg, positions=positions)
+        if remat:
+            x = checkpoint(_block_out, x, bp, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_out(x, bp, cfg, positions)
     return L.apply_norm(x, params["ln_f"], cfg.norm), 0.0
+
+
+def train_loss(cfg, params, batch):
+    """Mean next-token cross-entropy over ``batch["loss_mask"]`` (all
+    positions when absent), against the tied embedding or the head."""
+    hidden, aux = forward_hidden(cfg, params, batch)
+    table = (params["embed"]["table"] if cfg.tie_embeddings
+             else params["head"])
+    loss = L.chunked_ce_loss(hidden, table, batch["labels"],
+                             batch.get("loss_mask"), chunk=cfg.loss_chunk)
+    return loss + cfg.moe_aux_weight * aux
 
 
 # ----------------------------------------------------------------- serving --

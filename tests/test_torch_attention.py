@@ -337,8 +337,9 @@ def test_other_refusals():
     q, k, v = as_torch(qkv_np(2, 16))
     with pytest.raises(ValueError, match="compiled for dtype float32"):
         prog.apply(q.bfloat16(), k.bfloat16(), v.bfloat16())
-    with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-        prog.apply(q.requires_grad_(), k, v)
+    assert prog.apply(q.requires_grad_(), k, v).requires_grad   # no refusal
+    with pytest.raises(ValueError, match="cotangent must match q"):
+        prog.grad(q, k, v, q[:, :8])
     with pytest.raises(ValueError, match="multiples of 16"):
         tfa.check_head_dim(72)
 

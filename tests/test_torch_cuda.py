@@ -303,3 +303,149 @@ def test_reduced_serve_kernel_path_matches_chunked(cuda_device, name):
     torch.testing.assert_close(out["flash_pallas"][0], out["flash_jnp"][0],
                                atol=1e-4, rtol=1e-4)
     assert torch.equal(out["flash_pallas"][1], out["flash_jnp"][1])
+
+
+# ---------------------------------------------- flash attention backward ----
+def _f64_reference(q, k, v, do, causal, window):
+    """dq, dk, dv of the plain backward computed in float64 from the
+    exact float64 forward (dense, for small shapes)."""
+    from repro_torch.core.online_softmax import attention_mask
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    kr = k64.repeat_interleave(h // kv, dim=2)
+    vr = v64.repeat_interleave(h // kv, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q64, kr) / hd ** 0.5
+    ok = attention_mask(torch.arange(s, device=q.device),
+                        torch.arange(k.shape[1], device=q.device),
+                        causal=causal, window=window)
+    sc = torch.where(ok, sc, torch.tensor(-1e30, dtype=torch.float64,
+                                          device=q.device))
+    lse = torch.logsumexp(sc, dim=-1)                       # (b, h, s)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vr)
+    return fa.flash_attention_bwd_plain(q64, k64, v64, do64, out, lse,
+                                        causal=causal, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_match_plain(cuda_device, hd, groups, causal,
+                                       window, dtype):
+    """dq, dk, dv of the two backward kernels against the plain version
+    on the forward kernel's out and lse; S = 200 is no multiple of the
+    tiles.  Tolerances: 1e-4 in f32 (the reference suite's gradient
+    tolerance), and the f32 kernels also against the plain version run
+    in f64 from the exact forward; bf16 within 1e-4 + 2^-6·|want| per
+    element (both round one float32 result)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(2, 200, 2 * groups, 2, hd, dtype, cuda_device)
+    do = qkv(2, 200, 2 * groups, 2, hd, dtype, cuda_device, seed=1)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkdv.launches)
+    got = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkdv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=causal,
+                                        window=window)
+    atol, rtol = ((1e-4, 1e-4) if dtype == torch.float32
+                  else (1e-4, 2.0 ** -6))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+    if dtype == torch.float32:
+        for a, b in zip(got, _f64_reference(q, k, v, do, causal, window)):
+            torch.testing.assert_close(a.double(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_strided_inputs_and_rows_without_keys(cuda_device):
+    """q, k, v read in place from a fused (B, S, 3, H, hd) buffer; S >=
+    Sk + window leaves rows with no key, which get no gradient."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(4)
+    fused = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 32),
+                                                 dtype=np.float32))
+    fused = fused.to(cuda_device)
+    q = fused[:, :, 0]
+    k, v = fused[:, :40, 1, :2], fused[:, :40, 2, :2]
+    do = torch.from_numpy(rng.standard_normal((2, 96, 4, 32),
+                                              dtype=np.float32))
+    do = do.to(cuda_device)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    got = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                 window=24)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=True,
+                                        window=24)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert (got[0][:, 40 + 24 - 1:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_what_it_cannot_run(cuda_device):
+    from repro_torch.kernels import flash_attention as fa
+
+    for hd, dtype, msg in [(72, torch.float32, "multiples of 16"),
+                           (288, torch.float32, "up to 256"),
+                           (64, torch.float16, "float32 or bfloat16")]:
+        q, k, v = qkv(1, 64, 2, 1, hd, dtype, cuda_device)
+        lse = torch.zeros((1, 2, 64), device=cuda_device)
+        with pytest.raises(ValueError, match=msg):
+            fa.flash_attention_bwd(q, k, v, q, q, lse)
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_on_card_launch_counts(cuda_device):
+    """One step of reduced h2o-danube-1.8b (remat, 2 microbatches) on the
+    card: the forward kernel launches twice per layer and microbatch,
+    each backward kernel once; the step's parameters agree with the
+    chunked path's (``flash_jnp``) within 2e-4."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(C.get_config("h2o-danube-1.8b").reduced(),
+                              q_chunk=32, kv_chunk=32, swa_window=48,
+                              remat=True, microbatches=2)
+    toks = torch.randint(0, cfg.vocab, (4, 128), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    params = {}
+    for impl in ("flash_pallas", "flash_jnp"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        model = init_params(transformer.build_model(c, cuda_device),
+                            torch.Generator(cuda_device).manual_seed(0))
+        state = opt.init_state(model)
+        counts = (fa.flash_attention_fwd.launches,
+                  fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkdv.launches)
+        make_train_step(c, opt.OptConfig(lr=1e-3, warmup=1))(
+            model, state, {"tokens": toks, "labels": toks})
+        torch.cuda.synchronize()
+        launched = (fa.flash_attention_fwd.launches - counts[0],
+                    fa.flash_attention_bwd_dq.launches - counts[1],
+                    fa.flash_attention_bwd_dkdv.launches - counts[2])
+        per = cfg.n_layers * cfg.microbatches
+        assert launched == ((2 * per, per, per) if impl == "flash_pallas"
+                            else (0, 0, 0))
+        params[impl] = dict(model.named_parameters())
+    for n, p in params["flash_pallas"].items():
+        torch.testing.assert_close(p, params["flash_jnp"][n], atol=2e-4,
+                                   rtol=2e-4)

@@ -1,0 +1,339 @@
+"""The port's flash-attention backward against the JAX reference, on the CPU.
+
+The same numpy-seeded q, k, v and cotangent do go through the gradient of
+the reference's dense oracle (``repro.models.attention.dense_attention``)
+and of its chunked online-softmax path (``flash_attention``, 16-token
+chunks, so it really chunks), and through the port's:
+
+  * ``flash_attention_bwd_plain`` (from the plain forward's out and lse),
+  * ``flash_attention_trainable`` under torch autograd on CPU tensors (the
+    forward and backward kernels' plain versions),
+  * ``AttentionProgram.grad`` for impl ``cuda``, ``chunked`` and ``dense``.
+
+The reference's Pallas ``flash_attention_trainable`` cannot be the oracle:
+its kernels need ``pltpu.TPUCompilerParams``, which this jax lacks.
+
+Grid: GQA groups {1, 2, 4} × causal/bidirectional × window {None, 24} ×
+head_dim {16, 80} × float32/bfloat16.  The reference gradients are one
+``jax.vjp`` per case under ``jax.jit``; the chunked oracle runs at head_dim
+16 (its scan costs a compile per case).  In bfloat16 the oracle is the
+float32 program on the bf16-rounded inputs and cotangent with its
+gradients rounded to bf16: exactly what the oracle does on bf16 inputs,
+since it computes in float32 between its input and output casts.
+Tolerances: 2e-5 for forward outputs, 1e-4 for gradients in float32, 0.06
+in bfloat16 (the reference suite's).
+
+``emulate_bwd_tiles`` replays the two CUDA kernels' tile schedule
+(query-major dQ; key-major dK/dV with the GQA group loop and both tile
+skips) and is held against the plain version; the kernels themselves are
+held against the plain version on the card in ``test_torch_cuda.py``.
+"""
+import functools
+import itertools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import attention as rattn
+from repro_torch.api import attention as tapi
+from repro_torch.core import roofline as trl
+from repro_torch.core.online_softmax import attention_mask
+from repro_torch.kernels import flash_attention as tfa
+
+B, S, KV, CHUNK = 2, 64, 2, 16
+GROUPS = [1, 2, 4]
+MASKS = [(True, None), (False, None), (True, 24), (False, 24)]
+MASK_IDS = ["causal", "bidir", "causal-swa24", "bidir-swa24"]
+HEAD_DIMS = [16, 80]
+DTYPES = ["float32", "bfloat16"]
+FWD, GRAD, BF16 = 2e-5, 1e-4, 0.06
+PORT_PATHS = ["plain", "trainable", "grad-cuda", "grad-chunked",
+              "grad-dense"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are tiny: one intra-op thread keeps this module
+    from oversubscribing the CPU the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _bf16_round(a):
+    return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def inputs(g, hd, dtype, s=S, sk=S):
+    """numpy float32 q, k, v, do (bf16-representable for bf16 cases)."""
+    rng = np.random.default_rng(11 * g + hd + s + sk)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((B, s, KV * g, hd), (B, sk, KV, hd),
+                          (B, sk, KV, hd), (B, s, KV * g, hd))]
+    return [_bf16_round(a) if dtype == "bfloat16" else a for a in arrs]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_vjp(oracle, causal, window):
+    if oracle == "dense":
+        def fn(q, k, v):
+            return rattn.dense_attention(q, k, v, causal=causal,
+                                         window=window)
+    else:
+        def fn(q, k, v):
+            return rattn.flash_attention(q, k, v, causal=causal,
+                                         window=window, q_chunk=CHUNK,
+                                         kv_chunk=CHUNK)
+
+    @jax.jit
+    def vjp(q, k, v, do):
+        out, pull = jax.vjp(fn, q, k, v)
+        return (out,) + pull(do)
+    return vjp
+
+
+@functools.lru_cache(maxsize=None)
+def reference(oracle, g, hd, causal, window, dtype, s=S, sk=S):
+    """(out, dq, dk, dv) of the reference ``oracle`` as float32 numpy."""
+    res = _ref_vjp(oracle, causal, window)(
+        *[jnp.asarray(a) for a in inputs(g, hd, dtype, s, sk)])
+    res = [np.array(r) for r in res]
+    return [_bf16_round(r) if dtype == "bfloat16" else r for r in res]
+
+
+def _torch(arrs, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+def port(path, g, hd, causal, window, dtype):
+    """(dq, dk, dv) of one of the port's paths as float32 numpy."""
+    q, k, v, do = _torch(inputs(g, hd, dtype), dtype)
+    if path == "plain":
+        out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                 window=window)
+        grads = tfa.flash_attention_bwd_plain(q, k, v, do, out, lse,
+                                              causal=causal, window=window)
+    elif path == "trainable":
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = tfa.flash_attention_trainable(*leaves, causal=causal,
+                                            window=window)
+        grads = torch.autograd.grad(out, leaves, do)
+    else:
+        prog = tapi.compile_attention(
+            heads=KV * g, kv_heads=KV, head_dim=hd, causal=causal,
+            window=window, q_chunk=CHUNK, kv_chunk=CHUNK,
+            dtype=getattr(torch, dtype), impl=path.split("-")[1])
+        grads = prog.grad(q, k, v, do)
+    for x, want in zip(grads, (q, k, v)):
+        assert x.dtype == want.dtype and x.shape == want.shape
+    return [x.float().numpy() for x in grads]
+
+
+CASES = list(itertools.product(GROUPS, MASKS, HEAD_DIMS, DTYPES))
+CASE_IDS = [f"g{g}-{MASK_IDS[MASKS.index(m)]}-hd{hd}-{dt}"
+            for g, m, hd, dt in CASES]
+
+
+@pytest.mark.parametrize("path", PORT_PATHS)
+@pytest.mark.parametrize("g,mask,hd,dtype", CASES, ids=CASE_IDS)
+def test_backward_matches_reference(path, g, mask, hd, dtype):
+    causal, window = mask
+    tol = GRAD if dtype == "float32" else BF16
+    got = port(path, g, hd, causal, window, dtype)
+    oracles = ["dense"] + (["chunked"] if hd == 16 else [])
+    for oracle in oracles:
+        want = reference(oracle, g, hd, causal, window, dtype)[1:]
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=tol,
+                                       err_msg=f"{name} vs {oracle}")
+
+
+@pytest.mark.parametrize("g,mask", list(itertools.product(GROUPS, MASKS)),
+                         ids=[f"g{g}-{i}" for g in GROUPS for i in MASK_IDS])
+def test_trainable_forward_matches_reference(g, mask):
+    """The autograd function's forward is the lse-on forward's output."""
+    causal, window = mask
+    q, k, v, _ = _torch(inputs(g, 80, "float32"), "float32")
+    out = tfa.flash_attention_trainable(q, k, v, causal=causal,
+                                        window=window)
+    want = reference("dense", g, 80, causal, window, "float32")[0]
+    np.testing.assert_allclose(out.numpy(), want, atol=FWD, rtol=FWD)
+
+
+def test_rows_that_keep_no_key_get_no_gradient():
+    """S >= Sk + window leaves the last query rows with no key.  The
+    backward (the reference kernel's closed form, kept by the port's
+    plain version, kernels and autograd function) gives such a row no
+    gradient at all.  ``jax.grad`` of the dense oracle differs in dv
+    only: the row's softmax over the all-masked (finite -1e30) scores is
+    uniform, so each of its heads adds ``do / Sk`` to every key's dv.
+    The port's ``dense`` and ``chunked`` programs differentiate the plain
+    path and so agree with ``jax.grad``."""
+    g, hd, s, sk, window = 2, 16, 48, 16, 8
+    q, k, v, do = _torch(inputs(g, hd, "float32", s, sk), "float32")
+    _, rdq, rdk, rdv = reference("dense", g, hd, True, window, "float32", s,
+                                 sk)
+    dead = np.arange(s) >= sk + window - 1          # rows with no key
+    assert dead.sum() == s - (sk + window - 1) > 0
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                             window=window)
+    got = tfa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=True,
+                                        window=window)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got_t = torch.autograd.grad(tfa.flash_attention_trainable(
+        *leaves, causal=True, window=window), leaves, do)
+    # the dead rows' uniform share of dv, summed over their group's heads
+    share = do.numpy()[:, dead].reshape(B, -1, KV, g, hd).sum((1, 3)) / sk
+    for dq, dk, dv in (got, got_t):
+        assert (dq.numpy()[:, dead] == 0).all()
+        np.testing.assert_allclose(dq.numpy(), rdq, atol=GRAD, rtol=GRAD)
+        np.testing.assert_allclose(dk.numpy(), rdk, atol=GRAD, rtol=GRAD)
+        np.testing.assert_allclose(dv.numpy() + share[:, None], rdv,
+                                   atol=GRAD, rtol=GRAD)
+        assert np.abs(dv.numpy() - rdv).max() > 100 * GRAD
+    for impl in ("dense", "chunked"):
+        prog = tapi.compile_attention(heads=KV * g, kv_heads=KV,
+                                      head_dim=hd, window=window,
+                                      q_chunk=CHUNK, kv_chunk=CHUNK,
+                                      impl=impl)
+        for a, b in zip(prog.grad(q, k, v, do), (rdq, rdk, rdv)):
+            np.testing.assert_allclose(a.numpy(), b, atol=GRAD, rtol=GRAD)
+
+
+# --------------------------------------------------- the kernels' schedule ----
+def emulate_bwd_tiles(q, k, v, do, out, lse, *, causal, window):
+    """Replay the two CUDA kernels' schedule in float32 torch: the dQ
+    kernel's (batch·head, 64-query tile) CTAs, each over the key tiles
+    its rows keep; the dK/dV kernel's (batch, kv head, key tile) CTAs,
+    each over the G heads of its group and the query tiles that keep
+    some key of the tile.  Key tiles are 64 keys up to hd 128, else 32;
+    the ranges are the kernels' own formulas, so a tile they skip wrongly
+    shows up as a gradient that differs from the plain version."""
+    b, s, h, hd = q.shape
+    sk, kvh_n = k.shape[1], k.shape[2]
+    grp = h // kvh_n
+    bq, bk = 64, (64 if hd <= 128 else 32)
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    delta = (dof * out.float()).sum(-1)                    # (b, s, h)
+    dq = torch.zeros(qf.shape)
+    dk = torch.zeros(kf.shape)
+    dv = torch.zeros(vf.shape)
+    win = window if window is not None else 0
+
+    def tile(bi, hh, q0, k0):
+        """p and ds of one (query tile, key tile) pair, (qt, kt)."""
+        kvh = hh // grp
+        qs = slice(q0, min(q0 + bq, s))
+        ks = slice(k0, min(k0 + bk, sk))
+        sc = qf[bi, qs, hh] @ kf[bi, ks, kvh].T * scale
+        ok = attention_mask(torch.arange(s)[qs], torch.arange(sk)[ks],
+                            causal=causal, window=window)
+        p = torch.where(ok, torch.exp(sc - lse[bi, hh, qs, None]), 0.0)
+        dp = dof[bi, qs, hh] @ vf[bi, ks, kvh].T
+        ds = p * (dp - delta[bi, qs, hh, None]) * scale
+        return qs, ks, kvh, p, ds
+
+    for bi, hh, t in itertools.product(range(b), range(h),
+                                       range(-(-s // bq))):
+        q0 = t * bq
+        q_last = min(q0 + bq, s) - 1
+        k_lo = max(0, q0 - win + 1) if win > 0 else 0
+        k_hi = min(sk, q_last + 1) if causal else sk
+        t_lo = k_lo // bk
+        t_hi = -(-k_hi // bk) if k_hi > k_lo else t_lo
+        for kt in range(t_lo, t_hi):
+            qs, ks, kvh, _, ds = tile(bi, hh, q0, kt * bk)
+            dq[bi, qs, hh] += ds @ kf[bi, ks, kvh]
+    for bi, kvh, t in itertools.product(range(b), range(kvh_n),
+                                        range(-(-sk // bk))):
+        k0 = t * bk
+        k_last = min(k0 + bk, sk) - 1
+        q_lo = k0 if causal else 0
+        q_hi = min(s, k_last + win) if win > 0 else s
+        t_lo = q_lo // bq
+        t_hi = -(-q_hi // bq) if q_hi > q_lo else t_lo
+        for gg, qt in itertools.product(range(grp), range(t_lo, t_hi)):
+            qs, ks, _, p, ds = tile(bi, kvh * grp + gg, qt * bq, k0)
+            dv[bi, ks, kvh] += p.T @ dof[bi, qs, kvh * grp + gg]
+            dk[bi, ks, kvh] += ds.T @ qf[bi, qs, kvh * grp + gg]
+    return dq, dk, dv
+
+
+SCHEDULES = [  # (s, sk, heads, kv, hd, causal, window)
+    (193, 193, 4, 1, 16, True, None),   # a last query tile of one row
+    (200, 200, 4, 4, 16, False, None),
+    (200, 200, 8, 2, 16, True, 50),
+    (200, 200, 4, 2, 16, False, 70),
+    (200, 200, 4, 2, 16, True, 65),     # windows on the tile edges: the
+    (200, 200, 4, 1, 16, False, 66),    # first and last tile each keeps one
+    (150, 40, 4, 1, 16, True, 30),      # rows that keep no key
+    (100, 100, 2, 1, 144, True, 33),    # 32-key tiles above hd 128
+]
+
+
+@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES)
+def test_kernel_tile_schedule_matches_plain(s, sk, h, kv, hd, causal,
+                                            window):
+    rng = np.random.default_rng(s + sk + h + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape,
+                                                        dtype=np.float32))
+                   for shape in ((1, s, h, hd), (1, sk, kv, hd),
+                                 (1, sk, kv, hd), (1, s, h, hd)))
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             window=window)
+    want = tfa.flash_attention_bwd_plain(q, k, v, do, out, lse,
+                                         causal=causal, window=window)
+    got = emulate_bwd_tiles(q, k, v, do, out, lse, causal=causal,
+                            window=window)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD,
+                                   rtol=GRAD)
+
+
+# ------------------------------------------------------------- contracts ----
+def test_backward_refusals():
+    q, k, v, do = _torch(inputs(2, 16, "float32"), "float32")
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v)
+    with pytest.raises(ValueError, match="must match q"):
+        tfa.flash_attention_bwd(q, k, v, do[:, :8], out, lse)
+    with pytest.raises(ValueError, match="lse must be"):
+        tfa.flash_attention_bwd(q, k, v, do, out, lse[:, :1])
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tfa.flash_attention_bwd_dq(q, k, v, do, lse, lse, q, causal=True,
+                                   window=None)
+    prog = tapi.compile_attention(heads=KV * 2, kv_heads=KV, head_dim=16)
+    with pytest.raises(ValueError, match="cotangent must match q"):
+        prog.grad(q, k, v, do[:, :8])
+    before = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkdv.launches)
+    tfa.flash_attention_bwd(q, k, v, do, out, lse)       # plain on the CPU
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkdv.launches) == before
+
+
+def test_attention_bwd_bound_counts_ten_hd_flops_per_kept_pair():
+    """Operations: 10·hd per kept (query, key) pair per batch row and
+    head; bytes: q, o, do, k, v read and dq, dk, dv written in the
+    storage type, lse read in float32.  At h2o-danube-1.8b's training
+    layer (B 1, S 8192, H 32, KV 8, hd 80, window 4096, bf16) the bound
+    is set by the operations: 0.6515 ms at 989 TFLOP/s."""
+    fwd = trl.attention_bound(1, 8192, 8192, 32, 8, 80, causal=True,
+                              window=4096, bytes_per_el=2)
+    bwd = trl.attention_bwd_bound(1, 8192, 8192, 32, 8, 80, causal=True,
+                                  window=4096, bytes_per_el=2)
+    assert bwd["pairs_per_head"] == fwd["pairs_per_head"] == 25167872
+    assert bwd["flops"] == 10 * 80 * 25167872 * 32 == 2.5 * fwd["flops"]
+    assert bwd["bytes"] == 2 * (4 * 8192 * 32 * 80 + 4 * 8192 * 8 * 80) \
+        + 4 * 32 * 8192
+    assert bwd["bound_by"] == "operations"
+    assert abs(bwd["bound_ms"] - 0.6514636) < 1e-6
+    small = trl.attention_bwd_bound(2, 64, 96, 4, 1, 16, causal=False,
+                                    window=None, bytes_per_el=4)
+    assert small["flops"] == 10 * 16 * 64 * 96 * 2 * 4

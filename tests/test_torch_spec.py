@@ -178,9 +178,9 @@ def test_hardware_for_cpu_is_the_datasheet_model():
 
 
 def test_import_gate():
-    """``import repro_torch`` (its API, and the LM serving modules) pulls
-    in no jax, no triton, nothing of the reference package, and
-    initializes no CUDA."""
+    """``import repro_torch`` (its API, and the LM serving and training
+    modules) pulls in no jax, no triton, nothing of the reference
+    package, and initializes no CUDA."""
     code = textwrap.dedent("""
         import sys
         import repro_torch, repro_torch.api, repro_torch.launch.stencil_run
@@ -190,6 +190,9 @@ def test_import_gate():
         import repro_torch.models.params, repro_torch.models.layers
         import repro_torch.models.attention, repro_torch.models.transformer
         import repro_torch.serve.serve_step, repro_torch.launch.serve
+        import repro_torch.train.optimizer, repro_torch.train.data
+        import repro_torch.train.train_step, repro_torch.train.checkpoint
+        import repro_torch.launch.train
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
