@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm train)
 
-It builds the port's four CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, started together), then drives the port's paths
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, started together; ptxas's registers and spill
+stores are printed per kernel instantiation), then drives the port's paths
 through the entry points a user calls, each in its own counted run:
 
 * 2-D (``stencil2d``): ``compile_stencil(...).apply`` and ``.run`` for the
@@ -28,7 +29,8 @@ through the entry points a user calls, each in its own counted run:
   remat, its own 2 microbatches) for 3 AdamW steps at batch 2 × 8192
   tokens (so the 4096 window binds) with no checkpoint directory:
   every layer launches the flash forward kernel twice per microbatch
-  (forward and remat recompute) and each backward kernel once.
+  (forward and remat recompute) and each backward kernel once (bf16: the
+  tensor-core kernels of ``csrc/flash_attention_bwd_mma.cu``).
 
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
@@ -47,16 +49,23 @@ backward kernels against their plain versions at the full-width layer shapes
 (f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
 element, two units in the last place, with a control that the limit
 refuses one key dropped from each window; both instantiations; the
-backward's gradients: f32 < 1e-4, bf16 within the same per-element limit,
-with the window − 1 control) and at small ones (GQA 1/4/8, bidirectional,
-hd 64/128/256, a window, S no multiple of 64).  Timings use CUDA
+backward's gradients: f32 < 1e-4 (the float32 kernels of
+``csrc/flash_attention_bwd.cu``), bf16 within the same per-element limit,
+with the window − 1 control and a second launch equal bit for bit) and at
+small ones (GQA 1/2/4/8, bidirectional, hd 16/64/80/128/256, a window, S no
+multiple of 64).  Timings use CUDA
 events (warm-up, then the median): each kernel's ms, its plain version's,
 and a one-call yardstick the port never calls, ``library_ms``: ``t``
 chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
 ``scaled_dot_product_attention`` with the same boolean mask and
 ``enable_gqa=True`` for attention (its backward alone, by
 ``torch.autograd.grad``, for the backward kernel, with the backend that
-ran it printed).  The bound of a stencil sweep is the
+ran it printed).  The bf16 backward is also timed, as ``prev_ms``, on the
+float32-FMA kernels' bf16 instantiation, the route it took before the
+tensor-core kernels, after that instantiation is held to the same limit.
+The ``[model]`` line gives what is counted, not measured, of the bf16
+backward kernels: their tiles, the flops they issue per kept pair, their
+shared memory and ptxas's registers and spill stores.  The bound of a stencil sweep is the
 larger of its bytes (the domain read once, the padded layout written
 once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
 (34 fp64); of an attention call, the larger of q, k, v read and o written
@@ -94,7 +103,8 @@ REPLACES_FA = ("src/repro/kernels/flash_attention.py:35 and "
                "src/repro/kernels/flash_attention.py:127")
 SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES_FA_BWD = "src/repro/kernels/flash_attention.py:140"
-SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd_mma.cu"
+SOURCE_FA_BWD_F32 = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 # the LM phase: h2o-danube-1.8b at its published widths, served
 LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_REPEATS = 4, 8192, 32, 2
@@ -174,13 +184,12 @@ def main() -> int:
     # ---- build ---------------------------------------------------------
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc each
-        logs = dict(zip(_build.SOURCES, pool.map(_build.build,
-                                                 _build.SOURCES)))
+        list(pool.map(_build.build, _build.SOURCES))
     print(f"[build] {time.perf_counter() - t0:.2f}s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}", flush=True)
+    for name in _build.SOURCES:
+        print(f"[build] {name} kernels: [registers, spill-store bytes] "
+              f"{json.dumps(_build.ptxas_usage(_build.build_log(name)))}",
+              flush=True)
 
     phases = sys.argv[1:] or ["2d", "3d", "lm", "train"]
     check(set(phases) <= {"2d", "3d", "lm", "train"},
@@ -921,6 +930,7 @@ def lm_train(dev) -> dict:
 
     import repro_torch.configs as C
     from repro_torch.core.roofline import attention_bwd_bound
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels import stencil3d as st3
@@ -1076,6 +1086,15 @@ def lm_train(dev) -> dict:
         args = inputs(1, TRAIN_SEQ, h, kv, hd, dtype, True, window)
         errs[name], shares[name] = vs_plain(args, True, window, dtype,
                                             f"flash bwd {name} {shape}")
+        if dtype == torch.bfloat16:
+            first = fa.flash_attention_bwd(*args, causal=True, window=window)
+            again = fa.flash_attention_bwd(*args, causal=True, window=window)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"flash bwd {name} {shape}: a second launch differs")
+            print(f"[check] flash bwd {name} {shape}: a second launch "
+                  f"agrees bit for bit", flush=True)
+            del first, again
         del args
     # the bf16 limit's power: the gradient of the window - 1 attention
     args = inputs(1, TRAIN_SEQ, h, kv, hd, torch.bfloat16, True, window)
@@ -1100,7 +1119,9 @@ def lm_train(dev) -> dict:
                                         (2, 200, 8, 2, 128, False, None),
                                         (1, 256, 8, 1, 256, True, 100),
                                         (2, 300, 8, 8, 80, False, 64),
-                                        (1, 130, 4, 1, 16, True, 24)]:
+                                        (1, 130, 4, 1, 16, True, 24),
+                                        (2, 230, 4, 2, 80, True, 64),
+                                        (1, 190, 8, 2, 256, False, None)]:
         for dtype in (torch.float32, torch.bfloat16):
             vs_plain(inputs(b, s, hh, kk, d, dtype, causal, win), causal, win,
                      dtype, f"flash bwd {str(dtype).removeprefix('torch.')} "
@@ -1122,6 +1143,24 @@ def lm_train(dev) -> dict:
         q, k, v, do, lse, delta, dk, dv, causal=True, window=window), 10, 2)
     plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, do, out, lse, causal=True, window=window), 3, 1)
+    # prev_ms: the same bf16 call on the float32-FMA kernels' bf16
+    # instantiation (SOURCE_FA_BWD_F32, the bf16 route before the
+    # tensor-core kernels), checked against the plain version first
+    bf16_route = fa._BWD_ROUTES[torch.bfloat16]
+    fa._BWD_ROUTES[torch.bfloat16] = fa._BWD_ROUTES[torch.float32]
+    try:
+        _, prev_share = vs_plain((q, k, v, do, out, lse), True, window,
+                                 torch.bfloat16,
+                                 f"flash bwd bfloat16 {shape} (FMA kernels)")
+        prev_ms = median_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, do, out, lse, causal=True, window=window), 5, 1)
+        prev_dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, dq, causal=True, window=window), 5, 1)
+        prev_dkdv_ms = median_ms(lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, do, lse, delta, dk, dv, causal=True, window=window),
+            5, 1)
+    finally:
+        fa._BWD_ROUTES[torch.bfloat16] = bf16_route
     pos = torch.arange(TRAIN_SEQ, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
                                              > pos[:, None] - window)
@@ -1153,15 +1192,30 @@ def lm_train(dev) -> dict:
           "the SDPA backward yardstick disagrees with the kernels")
     bound = attention_bwd_bound(1, TRAIN_SEQ, TRAIN_SEQ, h, kv, hd,
                                 causal=True, window=window, bytes_per_el=2)
+    # what the tile model and the build say of the kernels (not measured)
+    issued = fa.bwd_issued_flops(TRAIN_SEQ, TRAIN_SEQ, h, kv, hd,
+                                 causal=True, window=window)
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_bwd_mma"))
+    model = dict(tiles=fa.bwd_tiles(hd), issued_flops=issued,
+                 issued_flops_per_kept_pair=issued
+                 / (bound["pairs_per_head"] * h),
+                 smem_bytes=[fa.bwd_smem_bytes(0, hd),
+                             fa.bwd_smem_bytes(1, hd)],
+                 registers_spill_stores={n: u for n, u in usage.items()
+                                         if f"ILi{hd}E" in n})
+    print("[model] flash bwd bfloat16 kernels at hd "
+          f"{hd}: {json.dumps(model)}", flush=True)
     attn_ms = 2 * cfg.n_layers * n_micro * fwd_ms \
         + cfg.n_layers * n_micro * kern_ms
     row = dict(shape=[1, TRAIN_SEQ, h, kv, hd], window=window,
                dtype="bfloat16", ms=kern_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
+               prev_ms=prev_ms, prev_dq_ms=prev_dq_ms,
+               prev_dkdv_ms=prev_dkdv_ms,
+               prev_bf16_share_of_limit=prev_share,
                plain_ms=plain_ms, library_ms=lib_ms, **bound,
                roofline_share=bound["bound_ms"] / kern_ms,
                tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
                fwd_ms_at_train_shape=fwd_ms,
-               smem_bytes=[fa.bwd_smem_bytes(0, hd), fa.bwd_smem_bytes(1, hd)],
                flash_ms_per_step=attn_ms,
                flash_share_of_step=attn_ms / stats.step_ms,
                sdpa_backward=backend)
@@ -1175,11 +1229,15 @@ def lm_train(dev) -> dict:
         "bound_by": bound["bound_by"], "library_ms": lib_ms,
         "times_are": "one backward call (delta, the dQ kernel and the dK/dV "
                      "kernel) at h2o-danube-1.8b's training layer shape (B1 "
-                     "S8192 H32 KV8 hd80, causal, window 4096), bf16; "
-                     "library_ms is torch.autograd.grad through "
+                     "S8192 H32 KV8 hd80, causal, window 4096), bf16, on "
+                     "the tensor-core kernels; prev_ms is the same call "
+                     "on the float32-FMA kernels' bf16 instantiation; "
+                     "library_ms is "
+                     "torch.autograd.grad through "
                      "scaled_dot_product_attention with the same boolean "
                      "mask",
-        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+        "source_f32": SOURCE_FA_BWD_F32,
+        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "prev_ms": prev_ms,
         "max_abs_err_f32": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"],
         "bf16_share_of_limit": shares["bfloat16"],

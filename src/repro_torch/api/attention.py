@@ -29,10 +29,11 @@ window keeps ``kpos > qpos - window``, query head ``h`` reads kv head
 ``h // (heads // kv_heads)``.  ``dtype`` is q/k/v storage; every impl
 computes in float32 and casts the output back once.
 
-``AttentionProgram.grad`` is not ported yet: it comes with the backward
-kernel (ROADMAP Queue 2 item 5), and ``.apply`` refuses inputs that
-require a gradient rather than differentiate some other function.
-Importing this module initializes no CUDA context.
+``.apply`` is differentiable in q, k and v under every impl, and
+``AttentionProgram.grad`` returns its VJP: for ``"cuda"`` the forward
+kernel (with the lse) and the two backward kernels through
+``flash_attention_trainable``, for the other impls torch autograd of the
+plain path.  Importing this module initializes no CUDA context.
 """
 from __future__ import annotations
 

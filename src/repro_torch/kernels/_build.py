@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +26,8 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = {"stencil2d": "stencil2d.cu", "stencil3d": "stencil3d.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu"}
+           "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_bwd_mma": "flash_attention_bwd_mma.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -56,13 +58,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> str:
-    """Compile the library ``name`` if it is missing; returns the
-    compiler's output (ptxas register and shared-memory lines), empty when
-    the library was already built."""
+def build(name: str) -> None:
+    """Compile the library ``name`` if it is missing.  The compiler's
+    output (ptxas register and spill lines) is kept beside the library
+    (:func:`build_log`); a library without it is built again."""
     out = library_path(name)
-    if out.exists():
-        return ""
+    if out.exists() and out.with_suffix(".log").exists():
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -72,8 +74,35 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
+    log_tmp = out.with_suffix(f".{os.getpid()}.log.tmp")
+    log_tmp.write_text(proc.stdout)
+    os.replace(log_tmp, out.with_suffix(".log"))
     os.replace(tmp, out)   # atomic: concurrent builders never see half
-    return proc.stdout
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the library ``name`` as it was built
+    (builds it first if missing)."""
+    library(name)
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
+    """``{kernel: (registers, spill-store bytes)}`` for each entry function
+    in an ``nvcc -Xptxas -v`` output (mangled names)."""
+    usage, fn, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)), spill)
+            fn = None
+    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

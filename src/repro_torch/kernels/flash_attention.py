@@ -1,7 +1,8 @@
 """Flash attention on the card: the wrappers of the CUDA forward kernel
 (``csrc/flash_attention.cu``) and backward kernels
-(``csrc/flash_attention_bwd.cu``), their plain PyTorch versions, and the
-autograd function that joins them.
+(``csrc/flash_attention_bwd_mma.cu`` for bfloat16,
+``csrc/flash_attention_bwd.cu`` for float32), their plain PyTorch
+versions, and the autograd function that joins them.
 
 Counterpart of the reference's Pallas kernels
 ``repro/kernels/flash_attention.py::_kernel`` (launched by
@@ -9,9 +10,12 @@ Counterpart of the reference's Pallas kernels
 ``flash_attention_pallas_fwd``): one CUDA source ports both, as two
 instantiations on whether the per-row logsumexp is written.  The
 reference's ``::_bwd_kernel`` (``flash_attention_pallas_bwd``) becomes two
-kernels in ``csrc/flash_attention_bwd.cu``, one query-major for dq and
-one key-major for dk and dv (summed over each GQA group in the kernel),
-and its ``custom_vjp`` becomes :func:`flash_attention_trainable`.
+kernels, one query-major for dq and one key-major for dk and dv (summed
+over each GQA group in the kernel), in two sources: bfloat16 inputs run
+``csrc/flash_attention_bwd_mma.cu`` (mma.sync on the tensor cores, p and
+ds carried as bf16 hi/lo pairs), float32 inputs
+``csrc/flash_attention_bwd.cu`` (float32 FMA).  Its ``custom_vjp``
+becomes :func:`flash_attention_trainable`.
 
     out, lse = flash_attention_fwd(q, k, v, causal=True, window=4096)
 
@@ -33,8 +37,13 @@ q is ``(B, S, H, hd)``, k and v ``(B, Sk, KV, hd)``; out is
   * On a CUDA tensor, :func:`flash_attention_bwd` makes ``delta =
     rowsum(do * out)`` in torch (as the reference does outside its
     kernel) and launches the dQ kernel (``flash_attention_bwd_dq``) and
-    the dK/dV kernel (``flash_attention_bwd_dkdv``), each adding one to
-    its own ``.launches``.  dq, dk and dv come back in the inputs' dtype.
+    the dK/dV kernel (``flash_attention_bwd_dkdv``) of the inputs'
+    dtype, each adding one to its own ``.launches`` whichever source
+    runs.  dq, dk and dv come back in the inputs' dtype.  The bfloat16
+    kernels copy rows by 16 bytes: an input whose rows are not 16-byte
+    aligned is copied to a contiguous tensor first, and each copy adds
+    one to ``flash_attention_bwd.copies``.  Nothing falls back: a build
+    or launch error raises.
   * On a CPU tensor it runs :func:`flash_attention_bwd_plain`, the same
     closed form over kv chunks in float32, with no S × Sk tensor and no
     autograd of the plain forward.
@@ -44,8 +53,8 @@ gets no gradient from the backward, as in the reference's kernel; the
 dense oracle's autograd would give dv a share of its uniform average.
 
 The reference's ``q_chunk``/``kv_chunk`` do not reach the kernels: their
-tiles (64 queries × 64 keys, 32 keys above hd 128 in the backward) are
-their own.  The chunk sizes stay in ``AttentionSpec``, whose
+tiles (64 queries × 64 keys in the forward; :func:`bwd_tiles` in the
+backward) are their own.  The chunk sizes stay in ``AttentionSpec``, whose
 divisibility contract the program enforces.
 """
 from __future__ import annotations
@@ -258,6 +267,8 @@ def flash_attention_bwd(q, k, v, do, out, lse, *, causal=True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_rows_aligned_or_copy(x) for x in (q, k, v, do))
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -286,19 +297,43 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, dk, dv, *, causal,
     return dk, dv
 
 
+flash_attention_bwd.copies = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkdv.launches = 0
 
-_BWD_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+# the backward kernels per dtype: (library, C entry point); both entry
+# points take the same arguments
+_BWD_ROUTES = {torch.bfloat16: ("flash_attention_bwd_mma", "flash_bwd_mma"),
+               torch.float32: ("flash_attention_bwd", "flash_bwd")}
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                  + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_float,
                                          ctypes.c_void_p])
 
 
+def _rows_aligned(x) -> bool:
+    """Whether the bfloat16 kernels' 16-byte copies reach every row of
+    ``x`` in place: a 16-byte aligned pointer and (batch, seq, head)
+    strides in multiples of 8 elements (where the dim is longer than 1)."""
+    return x.data_ptr() % 16 == 0 and all(
+        x.stride(i) % 8 == 0 or x.shape[i] == 1 for i in range(3))
+
+
+def _rows_aligned_or_copy(x):
+    """``x``, or a contiguous copy of it (counted in
+    ``flash_attention_bwd.copies``) when its rows are not 16-byte aligned.
+    A last dim that is not dense is left for the launch to refuse."""
+    if x.stride(3) != 1 or _rows_aligned(x):
+        return x
+    flash_attention_bwd.copies += 1
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _bwd_call_args(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
                    window, stream):
-    """The C arguments of one ``flash_bwd`` call; checks what the kernels
-    do not take.  (The strides array is kept alive by the caller.)"""
+    """The C arguments of one backward kernel call; checks what the
+    kernels do not take.  (The strides array is kept alive by the
+    caller.)"""
     b, s, h, hd = q.shape
     _, sk, kv, _ = k.shape
     check_head_dim(hd)
@@ -317,6 +352,13 @@ def _bwd_call_args(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({b}, {h}, {s}) "
                              f"float32 tensor")
+    if q.dtype == torch.bfloat16:
+        for name, x in zip(("q", "k", "v", "do", "dq", "dk", "dv"), tensors):
+            if not _rows_aligned(x):
+                raise ValueError(
+                    f"the bfloat16 backward kernels need 16-byte aligned "
+                    f"rows: {name} has pointer {x.data_ptr():#x} and strides "
+                    f"{x.stride()} (flash_attention_bwd copies such inputs)")
     strides = (ctypes.c_longlong * 21)(*(
         x.stride(i) for x in tensors for i in range(3)))
     args = (kernel, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -334,19 +376,20 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
         raise ValueError("the flash backward kernels take CUDA tensors only "
                          "(flash_attention_bwd runs the plain version on "
                          "the CPU)")
-    lib = _build.library("flash_attention_bwd")
-    fn = lib.flash_bwd
-    fn.argtypes = _BWD_ARGTYPES
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args, strides = _bwd_call_args(kernel, q, k, v, do, lse, delta, dq,
                                        dk, dv, causal, window, stream)
+        name, prefix = _BWD_ROUTES[q.dtype]
+        lib = _build.library(name)
+        fn = getattr(lib, prefix)
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
         err = fn(*args)
     if err != 0:
-        lib.flash_bwd_error_string.restype = ctypes.c_char_p
-        lib.flash_bwd_error_string.argtypes = [ctypes.c_int]
-        msg = lib.flash_bwd_error_string(err).decode()
+        errstr = getattr(lib, prefix + "_error_string")
+        errstr.restype = ctypes.c_char_p
+        errstr.argtypes = [ctypes.c_int]
+        msg = errstr(err).decode()
         raise RuntimeError(
             f"flash_attention backward launch failed ({msg}): "
             f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal={causal} "
@@ -354,11 +397,51 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
 
 
 def bwd_smem_bytes(kernel: int, hd: int) -> int:
-    """Shared memory one CTA of backward kernel ``kernel`` (0 dQ, 1
-    dK/dV) takes at ``hd`` (builds the library if needed)."""
-    fn = _build.library("flash_attention_bwd").flash_bwd_smem_bytes
+    """Shared memory one CTA of the bfloat16 backward kernel ``kernel`` (0
+    dQ, 1 dK/dV) takes at ``hd`` (builds the library if needed)."""
+    name, prefix = _BWD_ROUTES[torch.bfloat16]
+    fn = getattr(_build.library(name), prefix + "_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     return fn(kernel, hd)
+
+
+def bwd_tiles(hd: int) -> dict:
+    """The bfloat16 backward kernels' tiles at ``hd``, as
+    ``csrc/flash_attention_bwd_mma.cu`` instantiates them: dQ's (queries,
+    keys), dK/dV's (keys, queries), and the dK/dV columns summed per
+    pass (s and dp are recomputed once per pass)."""
+    bound = 64 if hd <= 64 else 80 if hd <= 80 else 128 if hd <= 128 \
+        else 256
+    return dict(dq=(64, 64 if bound <= 128 else 32),
+                dkdv=(64, 64 if bound <= 80 else 32),
+                columns_per_pass=min(bound, 128))
+
+
+def bwd_issued_flops(s: int, sk: int, h: int, kv: int, hd: int, *,
+                     causal: bool, window: int | None) -> int:
+    """Tensor-core flops the bfloat16 backward kernels issue for one batch
+    row: every (query, key) pair of every tile they run, ragged edges
+    and masked pairs included, at ``8·hd`` in dQ (s, dp, and ds·k as a
+    hi/lo pair) and ``(4·passes + 8)·hd`` in dK/dV (s and dp per pass,
+    pᵀ·do and dsᵀ·q as hi/lo pairs), over the kernels' own tile ranges."""
+    t = bwd_tiles(hd)
+    win = window or 0
+    (bq, bk), (ck, cq) = t["dq"], t["dkdv"]
+    passes = -(-hd // t["columns_per_pass"])
+    dq_pairs = 0
+    for q0 in range(0, s, bq):
+        k_lo = max(0, q0 - win + 1) if win else 0
+        k_hi = min(sk, min(q0 + bq, s)) if causal else sk
+        if k_hi > k_lo:
+            dq_pairs += (-(-k_hi // bk) - k_lo // bk) * bk * bq
+    dkdv_pairs = 0
+    for k0 in range(0, sk, ck):
+        q_lo = k0 if causal else 0
+        q_hi = min(s, min(k0 + ck, sk) - 1 + win) if win else s
+        if q_hi > q_lo:
+            dkdv_pairs += (-(-q_hi // cq) - q_lo // cq) * cq * ck
+    return (h * dq_pairs * 8 * hd
+            + h * dkdv_pairs * (4 * passes + 8) * hd)
 
 
 # ------------------------------------------------------------- autograd ----

@@ -407,6 +407,145 @@ def test_flash_bwd_refuses_what_it_cannot_run(cuda_device):
             fa.flash_attention_bwd(q, k, v, q, q, lse)
 
 
+# the bfloat16 route: csrc/flash_attention_bwd_mma.cu (tensor cores)
+BWD_MASKS = [(True, None), (True, 40), (False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", list(range(16, 257, 16)))
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("causal,window", BWD_MASKS,
+                         ids=["causal", "window", "none"])
+def test_flash_bwd_bf16_kernels_match_plain(cuda_device, monkeypatch, hd,
+                                            groups, causal, window):
+    """The tensor-core kernels against the plain version at every head
+    dim they serve, with ragged S and Sk (no multiple of any tile; S > Sk
+    at odd multiples of 16, S < Sk at even ones), each gradient within
+    1e-4 + 2^-6·|want| per element.  The plain version is made to raise
+    during the kernels' call: a bf16 CUDA input never reaches it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    s, sk = (133, 97) if hd // 16 % 2 else (97, 160)
+    rng = np.random.default_rng(hd + groups)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device, torch.bfloat16)
+        for shape in ((2, s, 2 * groups, hd), (2, sk, 2, hd),
+                      (2, sk, 2, hd), (2, s, 2 * groups, hd)))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=causal,
+                                        window=window)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a bf16 CUDA input reached the plain version")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", refuse)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkdv.launches,
+              fa.flash_attention_bwd.copies)
+    got = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkdv.launches,
+            fa.flash_attention_bwd.copies) == (before[0] + 1,
+                                               before[1] + 1, before[2])
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-4,
+                                   rtol=2.0 ** -6)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_repeat_is_bit_identical(cuda_device):
+    """No atomics and a fixed order of sums: two launches agree bit for
+    bit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(1, 1024, 8, 2, 80, torch.bfloat16, cuda_device, seed=5)
+    do = qkv(1, 1024, 8, 2, 80, torch.bfloat16, cuda_device, seed=6)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=256)
+    first = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                   window=256)
+    again = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                   window=256)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_strided_and_unaligned_inputs(cuda_device):
+    """q, k, v read in place from a fused (B, S, 3, H, hd) buffer (rows
+    16-byte aligned: no copy); q at a 2-byte offset and do with a row
+    stride of hd + 4 are copied first, counted; a kernel launched
+    directly on an unaligned input refuses it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(7)
+    fused = torch.from_numpy(rng.standard_normal(
+        (2, 96, 3, 4, 32), dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = fused[:, :, 0], fused[:, :, 1, :2], fused[:, :, 2, :2]
+    do = torch.from_numpy(rng.standard_normal(
+        (2, 96, 4, 36), dtype=np.float32)).to(cuda_device,
+                                              torch.bfloat16)[..., :32]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=True,
+                                        window=24)
+    before = fa.flash_attention_bwd.copies
+    got = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                 window=24)
+    assert fa.flash_attention_bwd.copies == before + 1         # do
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16,
+                      device=cuda_device)
+    q_odd = buf[1:1 + q.numel()].view(q.shape)
+    q_odd.copy_(q)
+    got_odd = fa.flash_attention_bwd(q_odd, k, v, do, out, lse,
+                                     causal=True, window=24)
+    assert fa.flash_attention_bwd.copies == before + 3         # q, do
+    for a, b, c in zip(got, got_odd, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), atol=1e-4,
+                                   rtol=2.0 ** -6)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd_dq(q_odd, k, v, do.contiguous(), lse, delta,
+                                  torch.empty_like(q), causal=True,
+                                  window=24)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_mma_build_has_no_spills(cuda_device):
+    """ptxas's report of the tensor-core kernels: every instantiation (head
+    dim bounds 64, 80, 128 and 256: minicpm-2b, h2o-danube-1.8b, qwen3-14b,
+    gemma-7b, and every other hd below each bound) stores no spill."""
+    from repro_torch.kernels import _build
+
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_bwd_mma"))
+    assert len(usage) == 8, usage
+    for bound in (64, 80, 128, 256):
+        for kern in ("fbm_dq_kernel", "fbm_dkdv_kernel"):
+            found = [u for name, u in usage.items()
+                     if kern in name and f"ILi{bound}E" in name]
+            assert len(found) == 1, (kern, bound, usage)
+            assert found[0][1] == 0, (kern, bound, found)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_mma_tiles_match_the_library(cuda_device):
+    """``bwd_tiles`` (which ``bwd_issued_flops`` counts with) mirrors the
+    CUDA source: the shared memory the library reports is what those
+    tiles take, at every hd."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for hd in range(16, 257, 16):
+        t = fa.bwd_tiles(hd)
+        row = (hd + 8) * 2
+        assert fa.bwd_smem_bytes(0, hd) == \
+            (2 * t["dq"][0] + 4 * t["dq"][1]) * row
+        assert fa.bwd_smem_bytes(1, hd) == \
+            (2 * t["dkdv"][0] + 4 * t["dkdv"][1]) * row + 16 * t["dkdv"][1]
+
+
 @pytest.mark.cuda
 def test_reduced_train_step_on_card_launch_counts(cuda_device):
     """One step of reduced h2o-danube-1.8b (remat, 2 microbatches) on the

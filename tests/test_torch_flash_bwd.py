@@ -23,10 +23,14 @@ since it computes in float32 between its input and output casts.
 Tolerances: 2e-5 for forward outputs, 1e-4 for gradients in float32, 0.06
 in bfloat16 (the reference suite's).
 
-``emulate_bwd_tiles`` replays the two CUDA kernels' tile schedule
+``emulate_bwd_tiles`` replays the float32 CUDA kernels' tile schedule
 (query-major dQ; key-major dK/dV with the GQA group loop and both tile
-skips) and is held against the plain version; the kernels themselves are
-held against the plain version on the card in ``test_torch_cuda.py``.
+skips) and is held against the plain version.  ``emulate_bwd_mma_tiles``
+replays the bfloat16 tensor-core kernels' schedule (their own tiles) and
+rounding (bf16 tiles, p and ds as bf16 hi/lo pairs into float32 sums) and
+is held against the plain version within the bf16 limit 1e-4 +
+2^-6·|want| per element.  The kernels themselves are held against the
+plain version on the card in ``test_torch_cuda.py``.
 """
 import functools
 import itertools
@@ -295,6 +299,205 @@ def test_kernel_tile_schedule_matches_plain(s, sk, h, kv, hd, causal,
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD,
                                    rtol=GRAD)
+
+
+# ------------------------------------ the bfloat16 kernels' schedule ----
+BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -6
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def emulate_bwd_mma_tiles(q, k, v, do, out, lse, *, causal, window,
+                          pairs=True):
+    """Replay the bfloat16 tensor-core kernels in float32 torch, at the
+    tiles ``bwd_tiles`` gives: the dQ kernel's query tiles over its key
+    tiles; the dK/dV kernel's key tiles over the G heads of the group and
+    its query tiles.  s and dp are products of the bf16
+    tiles summed in float32; p and ds enter the next products as the
+    pair bf16(x) + bf16(x - bf16(x)) (``pairs=False``: bf16(x) alone);
+    the sums are float32 and the outputs are rounded to bf16 once.
+    Returns ``(dq, dk, dv, issued_flops)``, the flops counted over every
+    pair of every tile run, as the kernels issue them."""
+    b, s, h, hd = q.shape
+    sk, kvh_n = k.shape[1], k.shape[2]
+    grp = h // kvh_n
+    tiles = tfa.bwd_tiles(hd)
+    (dq_bq, dq_bk), (kv_bk, kv_bq) = tiles["dq"], tiles["dkdv"]
+    passes = -(-hd // tiles["columns_per_pass"])
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    delta = (dof * out.float()).sum(-1)                    # (b, s, h)
+    dq, dk, dv = (torch.zeros(x.shape) for x in (qf, kf, vf))
+    win = window if window is not None else 0
+    flops = 0
+
+    def split(x):
+        hi = _bf16(x)
+        return (hi, _bf16(x - hi)) if pairs else (hi,)
+
+    def tile(bi, hh, q0, bq, k0, bk):
+        """p and ds of one (query tile, key tile) pair, (qt, kt)."""
+        kvh = hh // grp
+        qs, ks = slice(q0, min(q0 + bq, s)), slice(k0, min(k0 + bk, sk))
+        sc = qf[bi, qs, hh] @ kf[bi, ks, kvh].T
+        ok = attention_mask(torch.arange(s)[qs], torch.arange(sk)[ks],
+                            causal=causal, window=window)
+        p = torch.where(ok, torch.exp(sc * scale - lse[bi, hh, qs, None]),
+                        0.0)
+        dp = dof[bi, qs, hh] @ vf[bi, ks, kvh].T
+        ds = p * (dp - delta[bi, qs, hh, None]) * scale
+        return qs, ks, kvh, p, ds
+
+    for bi, hh, t in itertools.product(range(b), range(h),
+                                       range(-(-s // dq_bq))):
+        q0 = t * dq_bq
+        q_last = min(q0 + dq_bq, s) - 1
+        k_lo = max(0, q0 - win + 1) if win > 0 else 0
+        k_hi = min(sk, q_last + 1) if causal else sk
+        t_lo = k_lo // dq_bk
+        t_hi = -(-k_hi // dq_bk) if k_hi > k_lo else t_lo
+        for kt in range(t_lo, t_hi):
+            qs, ks, kvh, _, ds = tile(bi, hh, q0, dq_bq, kt * dq_bk, dq_bk)
+            for part in split(ds):
+                dq[bi, qs, hh] += part @ kf[bi, ks, kvh]
+            flops += dq_bq * dq_bk * 8 * hd
+    for bi, kvh, t in itertools.product(range(b), range(kvh_n),
+                                        range(-(-sk // kv_bk))):
+        k0 = t * kv_bk
+        k_last = min(k0 + kv_bk, sk) - 1
+        q_lo = k0 if causal else 0
+        q_hi = min(s, k_last + win) if win > 0 else s
+        t_lo = q_lo // kv_bq
+        t_hi = -(-q_hi // kv_bq) if q_hi > q_lo else t_lo
+        for gg, qt in itertools.product(range(grp), range(t_lo, t_hi)):
+            hh = kvh * grp + gg
+            qs, ks, _, p, ds = tile(bi, hh, qt * kv_bq, kv_bq, k0, kv_bk)
+            for part in split(p):
+                dv[bi, ks, kvh] += part.T @ dof[bi, qs, hh]
+            for part in split(ds):
+                dk[bi, ks, kvh] += part.T @ qf[bi, qs, hh]
+            flops += kv_bq * kv_bk * (4 * passes + 8) * hd
+    return _bf16(dq), _bf16(dk), _bf16(dv), flops
+
+
+def _bf16_inputs(s, sk, h, kv, hd, causal, window):
+    rng = np.random.default_rng(s + 3 * sk + h + hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).bfloat16()
+        for shape in ((1, s, h, hd), (1, sk, kv, hd), (1, sk, kv, hd),
+                      (1, s, h, hd)))
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             window=window)
+    return q, k, v, do, out, lse
+
+
+def _share_of_bf16_limit(got, want):
+    """The largest share of its element's limit 1e-4 + 2^-6·|want| that
+    any element of (dq, dk, dv) takes."""
+    return max(float(((a.double() - b.double()).abs()
+                      / (BF16_ATOL + BF16_RTOL * b.double().abs())).max())
+               for a, b in zip(got, want))
+
+
+SCHEDULES_BF16 = [  # (s, sk, heads, kv, hd, causal, window)
+    (193, 193, 4, 1, 16, True, None),   # a last query tile of one row
+    (200, 200, 4, 4, 16, False, None),
+    (200, 200, 8, 2, 16, True, 50),
+    (200, 200, 4, 2, 80, False, 70),
+    (200, 200, 4, 2, 16, True, 65),     # windows on the 64-row tile edges:
+    (200, 200, 4, 1, 80, False, 66),    # the first and last tile keep one
+    (150, 40, 4, 1, 16, True, 30),      # rows that keep no key
+    (130, 130, 2, 1, 96, True, 33),     # 32-query dK/dV tiles above hd 80,
+    (130, 130, 2, 1, 112, False, 34),   # windows on their edges
+    (100, 100, 2, 1, 144, True, 33),    # 32-key dQ tiles above hd 128
+    (100, 100, 2, 2, 256, True, 34),    # two dK/dV passes
+]
+
+
+def test_bf16_schedules_sit_on_the_kernels_tile_edges():
+    """The window-edge cases of ``SCHEDULES_BF16`` are written for these
+    tiles (the card test holds ``bwd_tiles`` against the library's shared
+    memory)."""
+    for hd, dq, dkdv in [(16, (64, 64), (64, 64)), (80, (64, 64), (64, 64)),
+                         (96, (64, 64), (64, 32)), (112, (64, 64), (64, 32)),
+                         (144, (64, 32), (64, 32)),
+                         (256, (64, 32), (64, 32))]:
+        t = tfa.bwd_tiles(hd)
+        assert (t["dq"], t["dkdv"]) == (dq, dkdv), hd
+    assert -(-256 // tfa.bwd_tiles(256)["columns_per_pass"]) == 2
+
+
+@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES_BF16)
+def test_bf16_kernel_schedule_matches_plain(s, sk, h, kv, hd, causal,
+                                            window):
+    """The bfloat16 kernels' schedule and rounding hold every gradient
+    within the bf16 limit of the plain version, and issue the flops that
+    ``bwd_issued_flops`` counts."""
+    args = _bf16_inputs(s, sk, h, kv, hd, causal, window)
+    want = tfa.flash_attention_bwd_plain(*args, causal=causal, window=window)
+    *got, flops = emulate_bwd_mma_tiles(*args, causal=causal, window=window)
+    assert _share_of_bf16_limit(got, want) <= 1.0
+    assert flops == tfa.bwd_issued_flops(s, sk, h, kv, hd, causal=causal,
+                                         window=window)
+
+
+def test_bf16_hi_lo_pairs_beat_one_rounding():
+    """p and ds rounded once to bf16 before the gradient products, against
+    the hi/lo pairs the kernels carry, at one 4096-token-window-like
+    shape cut small: the pair stays within the limit and closer than the
+    single rounding.  Prints both shares (``pytest -s``)."""
+    s, h, kv, hd, window = 320, 4, 1, 80, 200
+    args = _bf16_inputs(s, s, h, kv, hd, True, window)
+    want = tfa.flash_attention_bwd_plain(*args, causal=True, window=window)
+    shares = {}
+    for pairs in (True, False):
+        got = emulate_bwd_mma_tiles(*args, causal=True, window=window,
+                                    pairs=pairs)[:3]
+        shares["hi/lo pairs" if pairs else "one rounding"] = \
+            _share_of_bf16_limit(got, want)
+    print(f"share of the bf16 limit, S{s} H{h} KV{kv} hd{hd} window "
+          f"{window}: {shares}")
+    assert shares["hi/lo pairs"] <= 1.0
+    assert shares["hi/lo pairs"] < shares["one rounding"]
+
+
+def test_bf16_unaligned_rows_are_copied_and_counted():
+    """The bfloat16 kernels copy rows by 16 bytes: an input whose pointer
+    or strides break that is copied (and counted) before the launch; an
+    aligned one, strided or not, is read in place."""
+    base = torch.zeros(2 * 40 * 3 * 4 * 32 + 8, dtype=torch.bfloat16)
+    fused = base[8:].view(2, 40, 3, 4, 32)
+    q = fused[:, :, 0]                      # strided, rows aligned
+    odd = base[1:1 + 2 * 40 * 4 * 32].view(2, 40, 4, 32)   # 2-byte offset
+    narrow = torch.zeros(2, 40, 4, 36, dtype=torch.bfloat16)[..., :32]
+    before = tfa.flash_attention_bwd.copies
+    assert tfa._rows_aligned_or_copy(q) is q
+    for x in (odd, narrow):
+        y = tfa._rows_aligned_or_copy(x)
+        assert y is not x and y.is_contiguous() and torch.equal(y, x)
+    assert tfa.flash_attention_bwd.copies == before + 2
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    """The card tests and chip_smoke read spills per kernel instantiation
+    from the build's ``-Xptxas -v`` output."""
+    from repro_torch.kernels import _build
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z13fbm_dq_kernelILi80ELi64EEv7FbmArgs' for 'sm_90a'
+ptxas info    : Function properties for _Z13fbm_dq_kernelILi80ELi64EEv7FbmArgs
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 167 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z7k_spillv' for 'sm_90a'
+ptxas info    : Function properties for _Z7k_spillv
+    24 bytes stack frame, 24 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 0 barriers
+"""
+    assert _build.ptxas_usage(log) == {
+        "_Z13fbm_dq_kernelILi80ELi64EEv7FbmArgs": (167, 0),
+        "_Z7k_spillv": (128, 24)}
 
 
 # ------------------------------------------------------------- contracts ----
