@@ -22,15 +22,18 @@ through the entry points a user calls, each in its own counted run:
   heads, 8 kv heads, hd 80, window 4096; weights random from a seed, bf16)
   to a batch of 4 prompts of 8192 tokens and decodes 32 greedy tokens,
   with ``attention_impl="flash_pallas"``, so every prefill layer launches
-  the CUDA flash kernel (24 per prefill; one warm-up and two timed
-  prefills);
+  the CUDA flash forward kernel (24 per prefill; one warm-up and two timed
+  prefills; bf16: the tensor-core kernel of ``csrc/flash_attention_mma.cu``,
+  while float32 inputs run the FMA kernel of ``csrc/flash_attention.cu``);
 * training (``flash_attention_bwd``): ``launch.train.train`` trains
   h2o-danube-1.8b at the same widths (bf16 parameters and activations,
   remat, its own 2 microbatches) for 3 AdamW steps at batch 2 × 8192
   tokens (so the 4096 window binds) with no checkpoint directory:
   every layer launches the flash forward kernel twice per microbatch
   (forward and remat recompute) and each backward kernel once (bf16: the
-  tensor-core kernels of ``csrc/flash_attention_bwd_mma.cu``).
+  tensor-core kernels of ``csrc/flash_attention_mma.cu`` and
+  ``csrc/flash_attention_bwd_mma.cu``; float32 inputs run the FMA kernels of
+  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``).
 
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
@@ -48,24 +51,28 @@ chunked path (loss < 1e-4, each gradient leaf within 1e-4 of its largest
 backward kernels against their plain versions at the full-width layer shapes
 (f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
 element, two units in the last place, with a control that the limit
-refuses one key dropped from each window; both instantiations; the
+refuses one key dropped from each window, bf16 lse < 1e-4 and a second
+launch equal bit for bit; both instantiations; the
 backward's gradients: f32 < 1e-4 (the float32 kernels of
 ``csrc/flash_attention_bwd.cu``), bf16 within the same per-element limit,
 with the window − 1 control and a second launch equal bit for bit) and at
-small ones (GQA 1/2/4/8, bidirectional, hd 16/64/80/128/256, a window, S no
-multiple of 64).  Timings use CUDA
-events (warm-up, then the median): each kernel's ms, its plain version's,
+small ones (GQA 1/2/4/8, bidirectional, hd 16/64/80/96/128/144/256,
+windows on the tile edges, S no multiple of 64, rows that keep no
+key).  Timings use CUDA events (warm-up, then the median): each
+kernel's ms, its plain version's,
 and a one-call yardstick the port never calls, ``library_ms``: ``t``
 chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
 ``scaled_dot_product_attention`` with the same boolean mask and
 ``enable_gqa=True`` for attention (its backward alone, by
 ``torch.autograd.grad``, for the backward kernel, with the backend that
-ran it printed).  The bf16 backward is also timed, as ``prev_ms``, on the
-float32-FMA kernels' bf16 instantiation, the route it took before the
-tensor-core kernels, after that instantiation is held to the same limit.
-The ``[model]`` line gives what is counted, not measured, of the bf16
-backward kernels: their tiles, the flops they issue per kept pair, their
-shared memory and ptxas's registers and spill stores.  The bound of a stencil sweep is the
+ran it printed).  The bf16 forward and backward are also timed, as
+``prev_ms``, on the float32-FMA kernels' bf16 instantiations, the routes
+they took before the tensor-core kernels, after each instantiation is
+held to the same limit.  The ``[model]`` lines give what is counted, not
+measured, of the bf16 forward and backward kernels: their tiles, the
+flops they issue per kept pair, their shared memory and ptxas's
+registers and spill stores, and the forward's modelled flops over its
+measured ms.  The bound of a stencil sweep is the
 larger of its bytes (the domain read once, the padded layout written
 once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
 (34 fp64); of an attention call, the larger of q, k, v read and o written
@@ -101,7 +108,8 @@ REPLACES_3D = "src/repro/kernels/stencil3d.py:134"
 SOURCE_3D = "src/repro_torch/kernels/csrc/stencil3d.cu"
 REPLACES_FA = ("src/repro/kernels/flash_attention.py:35 and "
                "src/repro/kernels/flash_attention.py:127")
-SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention_mma.cu"
+SOURCE_FA_F32 = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES_FA_BWD = "src/repro/kernels/flash_attention.py:140"
 SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd_mma.cu"
 SOURCE_FA_BWD_F32 = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
@@ -677,6 +685,7 @@ def lm_serve(dev, held) -> dict:
 
     import repro_torch.configs as C
     from repro_torch.core.roofline import attention_bound
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels import stencil3d as st3
@@ -763,9 +772,11 @@ def lm_serve(dev, held) -> dict:
     h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     gen = torch.Generator(dev).manual_seed(2)
 
-    def qkv(b, s, h, kv, hd, dtype):
+    def qkv(b, s, h, kv, hd, dtype, sk=None):
+        sk = s if sk is None else sk
         return [torch.randn(shape, generator=gen, device=dev).to(dtype)
-                for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+                for shape in ((b, s, h, hd), (b, sk, kv, hd),
+                              (b, sk, kv, hd))]
 
     def held_out(got, want, dtype, what):
         if dtype == torch.float32:
@@ -792,6 +803,17 @@ def lm_serve(dev, held) -> dict:
         if dtype == torch.float32:
             errs["lse"] = held(lse, want_lse, 1e-4,
                                f"flash {name} {shape}: lse vs plain")
+        else:   # the backward reads this lse; no atomics: repeats exactly
+            errs["lse_bf16"] = held(lse, want_lse, 1e-4,
+                                    f"flash {name} {shape}: lse vs plain")
+            again, again_lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                                      window=window)
+            torch.cuda.synchronize()
+            check(torch.equal(again, out) and torch.equal(again_lse, lse),
+                  f"flash {name} {shape}: a second launch differs")
+            print(f"[check] flash {name} {shape}: a second launch agrees bit "
+                  f"for bit (out and lse)", flush=True)
+            del again, again_lse
         del q, k, v, out, lse, alone, want, want_lse
     # the bf16 limit's power: one key dropped from each full window fails it
     q, k, v = qkv(LM_BATCH, LM_PROMPT, h, kv, hd, torch.bfloat16)
@@ -807,18 +829,28 @@ def lm_serve(dev, held) -> dict:
           f"{control['share']:.2f} of the limit (must exceed 1)", flush=True)
     check(control["share"] > 1.0, "the bf16 limit passes one key dropped")
     del q, k, v, want, dropped, gap
-    for b, s, hh, kk, d, causal, win in [(2, 320, 4, 4, 64, True, None),
-                                        (2, 320, 8, 2, 128, False, None),
-                                        (1, 256, 4, 1, 256, True, 100),
-                                        (2, 300, 8, 8, 80, False, 64)]:
+    # the last five: the bf16 kernel's tile edges (a window of 64 on the
+    # 64-row edge, hd 96, hd 144's 32-key tiles, a window of 47 on a warp's
+    # 16-row edge) and rows that keep no key
+    for b, s, hh, kk, d, causal, win, sk in [
+            (2, 320, 4, 4, 64, True, None, None),
+            (2, 320, 8, 2, 128, False, None, None),
+            (1, 256, 4, 1, 256, True, 100, None),
+            (2, 300, 8, 8, 80, False, 64, None),
+            (2, 256, 8, 2, 80, True, 64, None),
+            (1, 200, 4, 1, 96, True, 33, None),
+            (1, 160, 4, 2, 144, False, 32, None),
+            (1, 200, 4, 1, 80, True, 47, None),
+            (2, 150, 4, 1, 80, True, 30, 40)]:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = qkv(b, s, hh, kk, d, dtype)
+            q, k, v = qkv(b, s, hh, kk, d, dtype, sk)
             out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                               window=win)
             want, want_lse = fa.flash_attention_fwd_plain(
                 q, k, v, causal=causal, window=win)
             what = (f"flash {str(dtype).removeprefix('torch.')} B{b} S{s} "
-                    f"H{hh} KV{kk} hd{d} causal={causal} window={win}")
+                    f"Sk{k.shape[1]} H{hh} KV{kk} hd{d} causal={causal} "
+                    f"window={win}")
             held_out(out, want, dtype, what + ": out vs plain")
             held(lse, want_lse, 1e-4, what + ": lse vs plain")
 
@@ -830,6 +862,24 @@ def lm_serve(dev, held) -> dict:
         q, k, v, causal=True, window=window), 10, 2)
     plain_ms = median_ms(lambda: fa.flash_attention_fwd_plain(
         q, k, v, causal=True, window=window), 3, 1)
+    # prev_ms: the same bf16 call on the float32-FMA kernel's bf16
+    # instantiation (SOURCE_FA_F32, the bf16 route before the tensor-core
+    # kernel), checked against the plain version first
+    want, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                           window=window)
+    bf16_route = fa._FWD_ROUTES[torch.bfloat16]
+    fa._FWD_ROUTES[torch.bfloat16] = fa._FWD_ROUTES[torch.float32]
+    try:
+        prev_out, _ = fa.flash_attention_fwd(q, k, v, causal=True,
+                                             window=window)
+        torch.cuda.synchronize()
+        _, prev_share = held_bf16(prev_out, want, f"flash bfloat16 {shape}: "
+                                  "out vs plain (FMA kernel)")
+        prev_ms = median_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=window), 5, 1)
+    finally:
+        fa._FWD_ROUTES[torch.bfloat16] = bf16_route
+    del prev_out, want
     pos = torch.arange(LM_PROMPT, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
                                              > pos[:, None] - window)
@@ -845,13 +895,29 @@ def lm_serve(dev, held) -> dict:
         "scaled_dot_product_attention yardstick vs kernel (bf16)")
     bound = attention_bound(LM_BATCH, LM_PROMPT, LM_PROMPT, h, kv, hd,
                             causal=True, window=window, bytes_per_el=2)
+    # what the tile model and the build say of the kernel (not measured)
+    issued = LM_BATCH * fa.fwd_issued_flops(LM_PROMPT, LM_PROMPT, h, kv, hd,
+                                            causal=True, window=window)
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_mma"))
+    model = dict(tiles=list(fa.fwd_tiles(hd)), issued_flops=issued,
+                 issued_flops_per_kept_pair=issued
+                 / (bound["pairs_per_head"] * h * LM_BATCH),
+                 smem_bytes=fa.smem_bytes(hd),
+                 registers_spill_stores={n: u for n, u in usage.items()
+                                         if f"ILi{hd}E" in n},
+                 # the modelled flop count over the measured ms
+                 modelled_issued_tflop_per_s_at_ms=issued
+                 / (kern_ms * 1e-3) / 1e12)
+    print(f"[model] flash fwd bfloat16 kernel at hd {hd}: "
+          f"{json.dumps(model)}", flush=True)
     row = dict(shape=[LM_BATCH, LM_PROMPT, h, kv, hd], window=window,
                dtype="bfloat16", ms=kern_ms, ms_lse_off=lse_off_ms,
+               prev_ms=prev_ms, prev_bf16_share_of_limit=prev_share,
                plain_ms=plain_ms,
                library_ms=lib_ms, **bound,
                roofline_share=bound["bound_ms"] / kern_ms,
                tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
-               smem_bytes=fa.smem_bytes(hd), launches=launches)
+               launches=launches)
     print("[timing] " + json.dumps(row), flush=True)
     return {
         "name": "flash_attention", "route": "cuda", "source": SOURCE_FA,
@@ -862,16 +928,20 @@ def lm_serve(dev, held) -> dict:
         "times_are": "one forward call at h2o-danube-1.8b's prefill layer "
                      "shapes (B4 S8192 H32 KV8 hd80, causal, window 4096), "
                      "bf16, with the lse (the instantiation the path "
-                     "launches); ms_lse_off is the lse-off instantiation; "
+                     "launches), on the tensor-core kernel; ms_lse_off is "
+                     "the lse-off instantiation; prev_ms is the same call "
+                     "on the float32-FMA kernel's bf16 instantiation; "
                      "library_ms is scaled_dot_product_attention with the "
                      "same boolean mask",
+        "source_f32": SOURCE_FA_F32, "prev_ms": prev_ms,
         "ms_lse_off": lse_off_ms,
         "max_abs_err_bf16": errs["bfloat16"],
         "bf16_share_of_limit": shares["bfloat16"],
         "bf16_limit": [BF16_ATOL, BF16_RTOL],
         "bf16_limit_control_window_minus_1": control,
         "max_abs_err_f32": errs["float32"], "max_abs_err_lse_f32":
-        errs["lse"], "max_abs_err_whole_path_f32": whole_err,
+        errs["lse"], "max_abs_err_lse_bf16": errs["lse_bf16"],
+        "max_abs_err_whole_path_f32": whole_err,
         "greedy_agreement_whole_path": agree, "lm": lm, "timing": row}
 
 

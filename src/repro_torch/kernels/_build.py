@@ -26,6 +26,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = {"stencil2d": "stencil2d.cu", "stencil3d": "stencil3d.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_mma": "flash_attention_mma.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "flash_attention_bwd_mma": "flash_attention_bwd_mma.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,15 +1,18 @@
-"""Flash attention on the card: the wrappers of the CUDA forward kernel
-(``csrc/flash_attention.cu``) and backward kernels
-(``csrc/flash_attention_bwd_mma.cu`` for bfloat16,
-``csrc/flash_attention_bwd.cu`` for float32), their plain PyTorch
-versions, and the autograd function that joins them.
+"""Flash attention on the card: the wrappers of the CUDA forward kernels
+(``csrc/flash_attention_mma.cu`` for bfloat16, ``csrc/flash_attention.cu``
+for float32) and backward kernels (``csrc/flash_attention_bwd_mma.cu`` for
+bfloat16, ``csrc/flash_attention_bwd.cu`` for float32), their plain
+PyTorch versions, and the autograd function that joins them.
 
 Counterpart of the reference's Pallas kernels
 ``repro/kernels/flash_attention.py::_kernel`` (launched by
 ``flash_attention_pallas``) and ``::_fwd_kernel_lse`` (launched by
-``flash_attention_pallas_fwd``): one CUDA source ports both, as two
-instantiations on whether the per-row logsumexp is written.  The
-reference's ``::_bwd_kernel`` (``flash_attention_pallas_bwd``) becomes two
+``flash_attention_pallas_fwd``): each forward source ports both, as two
+instantiations on whether the per-row logsumexp is written.  bfloat16
+inputs run ``csrc/flash_attention_mma.cu`` (mma.sync on the tensor cores,
+p carried as a bf16 hi/lo pair), float32 inputs
+``csrc/flash_attention.cu`` (float32 FMA).  The reference's
+``::_bwd_kernel`` (``flash_attention_pallas_bwd``) becomes two
 kernels, one query-major for dq and one key-major for dk and dv (summed
 over each GQA group in the kernel), in two sources: bfloat16 inputs run
 ``csrc/flash_attention_bwd_mma.cu`` (mma.sync on the tensor cores, p and
@@ -23,10 +26,15 @@ q is ``(B, S, H, hd)``, k and v ``(B, Sk, KV, hd)``; out is
 ``(B, S, H, hd)`` in q's dtype and lse ``(B, H, S)`` float32,
 ``m + log(max(l, 1e-30))`` per row (None when ``with_lse=False``).
 
-  * On a CUDA tensor, :func:`flash_attention_fwd` launches the kernel (or
-    raises) and adds one to ``flash_attention_fwd.launches``.  The kernel
-    reads float32 or bfloat16, any ``head_dim`` that is a multiple of 16
-    up to 256, in place through the strides (the last dim must be dense).
+  * On a CUDA tensor, :func:`flash_attention_fwd` launches the kernel of
+    the inputs' dtype (or raises) and adds one to
+    ``flash_attention_fwd.launches`` whichever source runs.  Both read any
+    ``head_dim`` that is a multiple of 16 up to 256, in place through the
+    strides (the last dim must be dense).  The bfloat16 kernel copies
+    rows by 16 bytes: an input whose rows are not 16-byte aligned is
+    copied to a contiguous tensor first, and each copy adds one to
+    ``flash_attention_fwd.copies``.  Nothing falls back: a build or
+    launch error raises.
   * On a CPU tensor it runs :func:`flash_attention_fwd_plain`, the same
     online softmax over kv chunks in plain torch.  No CUDA tensor ever
     takes the plain version.
@@ -53,9 +61,10 @@ gets no gradient from the backward, as in the reference's kernel; the
 dense oracle's autograd would give dv a share of its uniform average.
 
 The reference's ``q_chunk``/``kv_chunk`` do not reach the kernels: their
-tiles (64 queries × 64 keys in the forward; :func:`bwd_tiles` in the
-backward) are their own.  The chunk sizes stay in ``AttentionSpec``, whose
-divisibility contract the program enforces.
+tiles (:func:`fwd_tiles` and :func:`bwd_tiles` for the bfloat16 kernels;
+64 queries × 64 keys in the float32 forward) are their own.  The chunk
+sizes stay in ``AttentionSpec``, whose divisibility contract the program
+enforces.
 """
 from __future__ import annotations
 
@@ -67,7 +76,8 @@ import torch
 from repro_torch.core.online_softmax import attention_mask, online_softmax
 from repro_torch.kernels import _build
 
-MAX_HEAD_DIM = 256      # FA_MAX_HD in csrc/flash_attention.cu
+MAX_HEAD_DIM = 256      # FA_MAX_HD in csrc/flash_attention.cu, FFM_MAX_HD
+                        # in csrc/flash_attention_mma.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -126,12 +136,16 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_rows_aligned_or_copy(x, flash_attention_fwd)
+                   for x in (q, k, v))
     out, lse = _launch(q, k, v, causal, window, with_lse)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.copies = 0
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
@@ -141,6 +155,12 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                                with_lse=False)[0]
 
 
+# the forward kernels per dtype: (library, C entry point, its error
+# string); both entry points take the same arguments
+_FWD_ROUTES = {torch.bfloat16: ("flash_attention_mma", "flash_fwd_mma",
+                                "flash_fwd_mma_error_string"),
+               torch.float32: ("flash_attention", "flash_fwd",
+                               "flash_error_string")}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
              + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
@@ -160,13 +180,19 @@ def _launch(q, k, v, causal, window, with_lse):
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim must be dense (stride 1), "
                              f"got strides {x.stride()}")
+        if q.dtype == torch.bfloat16 and not _rows_aligned(x):
+            raise ValueError(
+                f"the bfloat16 forward kernel needs 16-byte aligned rows: "
+                f"{name} has pointer {x.data_ptr():#x} and strides "
+                f"{x.stride()} (flash_attention_fwd copies such inputs)")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = (ctypes.c_longlong * 12)(*(
         x.stride(i) for x in (q, k, v, out) for i in range(3)))
-    lib = _build.library("flash_attention")
-    fn = lib.flash_fwd
+    name, entry, errors = _FWD_ROUTES[q.dtype]
+    lib = _build.library(name)
+    fn = getattr(lib, entry)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
@@ -178,9 +204,10 @@ def _launch(q, k, v, causal, window, with_lse):
                  0 if window is None else int(window),
                  1.0 / math.sqrt(hd), stream)
     if err != 0:
-        lib.flash_error_string.restype = ctypes.c_char_p
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        msg = lib.flash_error_string(err).decode()
+        errstr = getattr(lib, errors)
+        errstr.restype = ctypes.c_char_p
+        errstr.argtypes = [ctypes.c_int]
+        msg = errstr(err).decode()
         raise RuntimeError(
             f"flash_attention launch failed ({msg}): q{tuple(q.shape)} "
             f"k{tuple(k.shape)} {q.dtype} causal={causal} window={window}")
@@ -188,11 +215,52 @@ def _launch(q, k, v, causal, window, with_lse):
 
 
 def smem_bytes(hd: int) -> int:
-    """Shared memory one CTA of the kernel takes at ``hd``, as the
-    library computes it (builds the library if needed)."""
-    fn = _build.library("flash_attention").flash_smem_bytes
+    """Shared memory one CTA of the bfloat16 forward kernel takes at
+    ``hd``, as the library computes it (builds the library if needed)."""
+    fn = _build.library("flash_attention_mma").flash_fwd_mma_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(hd)
+
+
+def fwd_tiles(hd: int) -> tuple[int, int]:
+    """The bfloat16 forward kernel's (queries, keys) tile at ``hd``, as
+    ``csrc/flash_attention_mma.cu`` instantiates it: 32-key tiles above
+    hd 128, where the accumulators take 128 registers a thread."""
+    return 64, (64 if hd <= 128 else 32)
+
+
+def fwd_key_tile_range(q0: int, s: int, sk: int, bq: int, bk: int, *,
+                       causal: bool, window: int | None) -> tuple[int, int]:
+    """The key tiles ``[t_lo, t_hi)`` the forward kernels run for the
+    query tile starting at row ``q0``, as ``csrc/flash_attention.cu`` and
+    ``csrc/flash_attention_mma.cu`` compute them: the keys its rows keep,
+    or every key tile when one of its rows keeps no key (S ≥ Sk + window),
+    so that such a row averages all keys."""
+    win = window or 0
+    q_last = min(q0 + bq, s) - 1
+    k_lo, k_hi = 0, sk
+    if not (win and q_last >= sk + win - 1):
+        if win:
+            k_lo = max(0, q0 - win + 1)
+        if causal:
+            k_hi = min(sk, q_last + 1)
+    return k_lo // bk, -(-k_hi // bk)
+
+
+def fwd_issued_flops(s: int, sk: int, h: int, kv: int, hd: int, *,
+                     causal: bool, window: int | None) -> int:
+    """Tensor-core flops the bfloat16 forward kernel issues for one batch
+    row: every (query, key) pair of every tile it runs, ragged edges and
+    masked pairs included, at ``6·hd`` (``q·kᵀ``, then ``p·v`` twice for
+    the hi/lo pair), over ``fwd_key_tile_range``.  ``kv`` does not change
+    the count: each query head runs its own tiles."""
+    bq, bk = fwd_tiles(hd)
+    tiles = 0
+    for q0 in range(0, s, bq):
+        t_lo, t_hi = fwd_key_tile_range(q0, s, sk, bq, bk, causal=causal,
+                                        window=window)
+        tiles += t_hi - t_lo
+    return h * tiles * bk * bq * 6 * hd
 
 
 # ------------------------------------------------------------- backward ----
@@ -268,7 +336,8 @@ def flash_attention_bwd(q, k, v, do, out, lse, *, causal=True, window=None):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
     if q.dtype == torch.bfloat16:
-        q, k, v, do = (_rows_aligned_or_copy(x) for x in (q, k, v, do))
+        q, k, v, do = (_rows_aligned_or_copy(x, flash_attention_bwd)
+                       for x in (q, k, v, do))
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -319,13 +388,14 @@ def _rows_aligned(x) -> bool:
         x.stride(i) % 8 == 0 or x.shape[i] == 1 for i in range(3))
 
 
-def _rows_aligned_or_copy(x):
-    """``x``, or a contiguous copy of it (counted in
-    ``flash_attention_bwd.copies``) when its rows are not 16-byte aligned.
+def _rows_aligned_or_copy(x, counted_in):
+    """``x``, or a contiguous copy of it when its rows are not 16-byte
+    aligned; each copy adds one to ``counted_in.copies`` (the wrapper
+    that asked, :func:`flash_attention_fwd` or :func:`flash_attention_bwd`).
     A last dim that is not dense is left for the launch to refuse."""
     if x.stride(3) != 1 or _rows_aligned(x):
         return x
-    flash_attention_bwd.copies += 1
+    counted_in.copies += 1
     return x.clone(memory_format=torch.contiguous_format)
 
 

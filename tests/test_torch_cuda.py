@@ -199,18 +199,22 @@ def qkv(b, s, h, kv, hd, dtype, device, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [16, 64, 80, 96, 128, 144, 256])
 @pytest.mark.parametrize("groups", [1, 4])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
-@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("window", [None, 64, 32, 47])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda_device, hd, groups, causal, window,
                                     dtype):
-    """Out and lse of the kernel against its plain version; S = 200 is
-    no multiple of the 64-row tile.  Tolerances: the reference suite's
-    2e-5 for f32 out, 1e-4 for lse; bf16 out within 1e-4 + 2^-6·|want|
-    per element, two units in the last place (both round one float32
-    result to bf16, so a sound kernel is at most one unit away)."""
+    """Out and lse of the kernel of each dtype (bf16: the tensor-core
+    kernel; float32: the FMA kernel) against its plain version; S = 200
+    is no multiple of the 64-row tile, windows of 64 and 32 sit on the
+    64- and 32-key tile edges, and a window of 47 puts a warp's 16 rows
+    on a window edge (the bf16 kernel's keep-whole test).  Tolerances:
+    the reference suite's 2e-5 for f32 out, 1e-4 for lse; bf16 out within
+    1e-4 + 2^-6·|want| per element, two units in the last place (both
+    round one float32 result to bf16, so a sound kernel is at most one
+    unit away)."""
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v = qkv(2, 200, 2 * groups, 2, hd, dtype, cuda_device)
@@ -233,27 +237,44 @@ def test_flash_kernel_matches_plain(cuda_device, hd, groups, causal, window,
 
 
 @pytest.mark.cuda
-def test_flash_kernel_strided_inputs_and_fully_masked_rows(cuda_device):
-    """q, k, v read in place from a fused (B, S, 3, H, hd) buffer; S >=
-    Sk + window gives rows with no valid key (the reference averages
-    every key for them)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_strided_inputs_and_fully_masked_rows(cuda_device,
+                                                           dtype):
+    """q, k, v read in place from a fused (B, S, 3, H, hd) buffer (bf16:
+    rows 16-byte aligned, so no copy); S >= Sk + window gives rows with
+    no valid key (the reference averages every key for them, with the lse
+    -1e30).  Tolerances as in ``test_flash_kernel_matches_plain``."""
     from repro_torch.kernels import flash_attention as fa
 
+    atol, rtol = ((2e-5, 2e-5) if dtype == torch.float32
+                  else (1e-4, 2.0 ** -6))
     rng = np.random.default_rng(1)
     fused = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 32),
                                                  dtype=np.float32))
-    fused = fused.to(cuda_device)
+    fused = fused.to(cuda_device, dtype)
     q, k, v = fused[:, :, 0], fused[:, :, 1, :2], fused[:, :, 2, :2]
+    copies = fa.flash_attention_fwd.copies
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    assert fa.flash_attention_fwd.copies == copies
     want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
                                                   window=24)
-    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
     kk, vv = k[:, :40].contiguous(), v[:, :40].contiguous()
-    out, _ = fa.flash_attention_fwd(q.contiguous(), kk, vv, causal=True,
-                                    window=8)
-    want, _ = fa.flash_attention_fwd_plain(q, kk, vv, causal=True, window=8)
-    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    out, lse = fa.flash_attention_fwd(q.contiguous(), kk, vv, causal=True,
+                                      window=8)
+    want, want_lse = fa.flash_attention_fwd_plain(q, kk, vv, causal=True,
+                                                  window=8)
+    torch.testing.assert_close(out.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    dead = slice(40 + 8 - 1, 96)                  # rows that keep no key
+    mean = vv.float().mean(1, keepdim=True).repeat_interleave(2, dim=2)
+    torch.testing.assert_close(out[:, dead].float(),
+                               mean.expand_as(out[:, dead]).to(dtype).float(),
+                               atol=atol, rtol=rtol)
+    assert (lse[:, :, dead] == -1e30).all()
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -303,6 +324,108 @@ def test_reduced_serve_kernel_path_matches_chunked(cuda_device, name):
     torch.testing.assert_close(out["flash_pallas"][0], out["flash_jnp"][0],
                                atol=1e-4, rtol=1e-4)
     assert torch.equal(out["flash_pallas"][1], out["flash_jnp"][1])
+
+
+# the bfloat16 forward route: csrc/flash_attention_mma.cu (tensor cores)
+@pytest.mark.cuda
+def test_flash_fwd_dispatch_reaches_the_kernel_of_each_dtype(cuda_device,
+                                                             monkeypatch):
+    """A CUDA bf16 input loads the tensor-core library, a float32 one the
+    FMA library; neither reaches the plain version (made to raise)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    loaded = []
+    library = _build.library
+
+    def record(name):
+        loaded.append(name)
+        return library(name)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA input reached the plain version")
+
+    monkeypatch.setattr(_build, "library", record)
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain", refuse)
+    for dtype, name in ((torch.bfloat16, "flash_attention_mma"),
+                        (torch.float32, "flash_attention")):
+        q, k, v = qkv(1, 130, 4, 2, 80, dtype, cuda_device)
+        before = fa.flash_attention_fwd.launches
+        out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
+        torch.cuda.synchronize()
+        assert loaded[-1] == name and out.dtype == dtype
+        assert fa.flash_attention_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bf16_repeat_is_bit_identical(cuda_device):
+    """No atomics and a fixed order of sums: two launches agree bit for
+    bit, out and lse (the training path recomputes the forward under
+    remat)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(2, 1024, 8, 2, 80, torch.bfloat16, cuda_device, seed=5)
+    first = fa.flash_attention_fwd(q, k, v, causal=True, window=256)
+    again = fa.flash_attention_fwd(q, k, v, causal=True, window=256)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bf16_unaligned_rows_are_copied_and_counted(cuda_device):
+    """q at a 2-byte offset and k with a row stride of hd + 4 are copied
+    first, counted in ``flash_attention_fwd.copies``, and give the aligned
+    inputs' result bit for bit; the launcher called directly on an
+    unaligned input refuses it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(2, 96, 4, 2, 32, torch.bfloat16, cuda_device, seed=7)
+    want = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    q_odd = buf[1:1 + q.numel()].view(q.shape)
+    q_odd.copy_(q)
+    k_wide = torch.zeros((2, 96, 2, 36), dtype=torch.bfloat16,
+                         device=cuda_device)[..., :32]
+    k_wide.copy_(k)
+    before = fa.flash_attention_fwd.copies
+    got = fa.flash_attention_fwd(q_odd, k_wide, v, causal=True, window=24)
+    assert fa.flash_attention_fwd.copies == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(q_odd, k, v, True, 24, True)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_mma_build_has_no_spills(cuda_device):
+    """ptxas's report of the tensor-core forward kernel: every
+    instantiation (head dim bounds 64, 80, 128 and 256, lse on and off)
+    stores no spill."""
+    from repro_torch.kernels import _build
+
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_mma"))
+    assert len(usage) == 8, usage
+    for bound in (64, 80, 128, 256):
+        for lse in ("Lb0E", "Lb1E"):
+            found = [u for name, u in usage.items()
+                     if "ffm_kernel" in name and f"ILi{bound}E" in name
+                     and lse in name]
+            assert len(found) == 1, (bound, lse, usage)
+            assert found[0][1] == 0, (bound, lse, found)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_mma_tiles_match_the_library(cuda_device):
+    """``fwd_tiles`` (which ``fwd_issued_flops`` counts with) mirrors the
+    CUDA source: the shared memory the library reports is what those
+    tiles take (Q once, K and V double-buffered, rows of hd + 8), at
+    every hd."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for hd in range(16, 257, 16):
+        bq, bk = fa.fwd_tiles(hd)
+        assert fa.smem_bytes(hd) == (bq + 4 * bk) * (hd + 8) * 2
 
 
 # ---------------------------------------------- flash attention backward ----

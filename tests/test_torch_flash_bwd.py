@@ -463,21 +463,27 @@ def test_bf16_hi_lo_pairs_beat_one_rounding():
     assert shares["hi/lo pairs"] < shares["one rounding"]
 
 
-def test_bf16_unaligned_rows_are_copied_and_counted():
+@pytest.mark.parametrize("counted_in", ["flash_attention_fwd",
+                                        "flash_attention_bwd"])
+def test_bf16_unaligned_rows_are_copied_and_counted(counted_in):
     """The bfloat16 kernels copy rows by 16 bytes: an input whose pointer
-    or strides break that is copied (and counted) before the launch; an
-    aligned one, strided or not, is read in place."""
+    or strides break that is copied (and counted in the calling wrapper's
+    ``copies``, no other's) before the launch; an aligned one, strided or
+    not, is read in place."""
+    wrappers = (tfa.flash_attention_fwd, tfa.flash_attention_bwd)
+    counter = getattr(tfa, counted_in)
     base = torch.zeros(2 * 40 * 3 * 4 * 32 + 8, dtype=torch.bfloat16)
     fused = base[8:].view(2, 40, 3, 4, 32)
     q = fused[:, :, 0]                      # strided, rows aligned
     odd = base[1:1 + 2 * 40 * 4 * 32].view(2, 40, 4, 32)   # 2-byte offset
     narrow = torch.zeros(2, 40, 4, 36, dtype=torch.bfloat16)[..., :32]
-    before = tfa.flash_attention_bwd.copies
-    assert tfa._rows_aligned_or_copy(q) is q
+    before = [w.copies for w in wrappers]
+    assert tfa._rows_aligned_or_copy(q, counter) is q
     for x in (odd, narrow):
-        y = tfa._rows_aligned_or_copy(x)
+        y = tfa._rows_aligned_or_copy(x, counter)
         assert y is not x and y.is_contiguous() and torch.equal(y, x)
-    assert tfa.flash_attention_bwd.copies == before + 2
+    assert [w.copies for w in wrappers] == [
+        n + 2 * (w is counter) for n, w in zip(before, wrappers)]
 
 
 def test_ptxas_usage_reads_registers_and_spills():
