@@ -5,9 +5,14 @@
     python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm train)
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, started together; ptxas's registers and spill
-stores are printed per kernel instantiation), then drives the port's paths
-through the entry points a user calls, each in its own counted run:
+(one ``nvcc`` per source and per tap-set library of the 3-D template
+``stencil3d.cu``, for the five 3-D Table-2 stencils and the lifted
+j2d5pt, all started together; each library's seconds and ptxas's
+registers and spill stores, and for ``stencil3d`` its stack frame, are
+printed per kernel instantiation, and the 3-D phase prints each launch's
+``kernel_smem_bytes`` against the planner's ``smem_bytes_3d`` budget),
+then drives the port's paths through the entry points a user calls, each
+in its own counted run:
 
 * 2-D (``stencil2d``): ``compile_stencil(...).apply`` and ``.run`` for the
   four 2-D Table-2 stencils at their Table-2 domains (8352², 8064², 8784²,
@@ -72,8 +77,9 @@ held to the same limit.  The ``[model]`` lines give what is counted, not
 measured, of the bf16 forward and backward kernels: their tiles, the
 flops they issue per kept pair, their shared memory and ptxas's
 registers and spill stores, and the forward's modelled flops over its
-measured ms.  The bound of a stencil sweep is the
-larger of its bytes (the domain read once, the padded layout written
+measured ms; for each 3-D sweep, the cell-updates its trapezoid
+schedule computes over its measured ms.  The bound of a stencil sweep is
+the larger of its bytes (the domain read once, the padded layout written
 once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
 (34 fp64); of an attention call, the larger of q, k, v read and o written
 once over 3.35 TB/s and ``4·hd`` flops per (query, key) pair the mask
@@ -189,14 +195,40 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda} "
           f"devices {torch.cuda.device_count()}", flush=True)
 
-    # ---- build ---------------------------------------------------------
+    # ---- build ----------------------------------------------------------
+    # one nvcc per source and per tap-set library of the 3-D kernel (the
+    # five 3-D Table-2 stencils and the lifted j2d5pt), all started together
+    from repro_torch.core.stencil_spec import TABLE3_DEPTHS, get, lift_2d_to_3d
+    from repro_torch.kernels import stencil3d as st3
+
+    tapsets = {name: get(name) for name in TABLE3_DEPTHS
+               if get(name).ndim == 3}
+    tapsets["j2d5pt (lifted)"] = lift_2d_to_3d(get("j2d5pt"))
+    jobs = [(name, None) for name in _build.SOURCES] + [
+        ("stencil3d", st3.tapset_header(spec)) for spec in tapsets.values()]
+    seconds = {}
+
+    def timed_build(job):
+        t1 = time.perf_counter()
+        _build.build(*job)
+        seconds[job] = time.perf_counter() - t1
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:   # one nvcc each
-        list(pool.map(_build.build, _build.SOURCES))
-    print(f"[build] {time.perf_counter() - t0:.2f}s", flush=True)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(timed_build, jobs))
+    print(f"[build] {time.perf_counter() - t0:.2f}s for {len(jobs)} "
+          f"libraries ({len(tapsets)} stencil3d tap sets)", flush=True)
     for name in _build.SOURCES:
-        print(f"[build] {name} kernels: [registers, spill-store bytes] "
+        print(f"[build] {name} {seconds[(name, None)]:.2f}s kernels: "
+              "[registers, spill-store bytes] "
               f"{json.dumps(_build.ptxas_usage(_build.build_log(name)))}",
+              flush=True)
+    for name, spec in tapsets.items():
+        job = ("stencil3d", st3.tapset_header(spec))
+        print(f"[build] stencil3d {name}: {seconds[job]:.2f}s, "
+              f"{_build.library_path(*job).name}; kernels: [registers, "
+              "spill-store bytes, stack-frame bytes] "
+              f"{json.dumps(_build.ptxas_frames(_build.build_log(*job)))}",
               flush=True)
 
     phases = sys.argv[1:] or ["2d", "3d", "lm", "train"]
@@ -453,6 +485,16 @@ def kernel_entry(name, source, replaces, launches, max_err, rows,
         "per_stencil": rows, **extra}
 
 
+def model_3d(name, threads, g, ms) -> None:
+    """The ``[model]`` line of a 3-D sweep: the stencil applications its
+    trapezoid schedule computes (counted from the launch geometry, not
+    measured), and that count over the measured ms."""
+    print(f"[model] stencil3d {name}: {threads} threads a CTA, "
+          f"{g['cell_updates']} cell-updates (counted), "
+          f"{g['cell_updates'] / (ms * 1e-3):.4g} a second at the measured "
+          f"{ms:.4g} ms", flush=True)
+
+
 def three_d(dev, held) -> dict:
     """The 3-D main path, counted; then its checks and timings,
     uncounted.  Returns the ``stencil3d`` entry of the ``kernels`` line."""
@@ -542,6 +584,25 @@ def three_d(dev, held) -> dict:
                    f"{what} kernel vs plain sweep (repeat bit-identical)")
         return xp, err
 
+    # each launch's block and shared memory, from the library's launcher
+    launched = {}
+    for name, spec, t, shape, g, itemsize in [
+            (n, get(n), c["t"], get(n).domain, c["prog"].geometry(), 4)
+            for n, c in cases.items()] + [
+            ("j3d7pt f64", j7, 8, j7.domain, prog_d.geometry(), 8),
+            ("j2d5pt stream", lift_2d_to_3d(j5), 12,
+             (j5.domain[0], 1, j5.domain[1]), prog_s.geometry(), 4)]:
+        block, smem = st3.launch_shape(spec, t, shape, g, itemsize)
+        check(smem == g["kernel_smem_bytes"] and block == g["threads"],
+              f"{name}: the launcher's block {block} and shared memory "
+              f"{smem} are not the planner's {g['threads']} and "
+              f"{g['kernel_smem_bytes']}")
+        check(smem <= g["smem_bytes"],
+              f"{name}: {smem} B of shared memory over the planner's budget")
+        launched[name] = block, smem
+        print(f"[build] stencil3d {name} launch: kernel_smem_bytes {smem} "
+              f"of smem_bytes_3d {g['smem_bytes']}, {block} threads, "
+              f"tile {list(g['block'])}", flush=True)
     for name, c in cases.items():
         spec, prog, x, t = get(name), c["prog"], c["x"], c["t"]
         check(c["y1"].shape == x.shape and c["yT"].shape == x.shape,
@@ -628,6 +689,7 @@ def three_d(dev, held) -> dict:
         row = dict(stencil=name, t=t, domain=list(spec.domain),
                    tile=[zc, ty, tx], grid=list(g["grid"]),
                    padded=list(g["padded"]), smem_bytes=g["smem_bytes"],
+                   kernel_smem_bytes=launched[name][1],
                    ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=b_s * 1e3, bound_by=b_by,
                    roofline_share=b_s / (kern_ms * 1e-3),
@@ -643,6 +705,7 @@ def three_d(dev, held) -> dict:
                    host_s_first_call=c["host_s"])
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
+        model_3d(name, launched[name][0], g, kern_ms)
 
     # the stream sweep: j2d5pt at 8352² as 8352×1×8352, t=12
     zc, ty, tx = lifted["block"]
@@ -658,16 +721,21 @@ def three_d(dev, held) -> dict:
     stream = dict(stencil="j2d5pt stream", t=12, domain=list(j5.domain),
                   tile=[zc, ty, tx], grid=list(lifted["grid"]),
                   padded=list(lifted["padded"]),
-                  smem_bytes=lifted["smem_bytes"], ms=s_ms,
+                  smem_bytes=lifted["smem_bytes"],
+                  kernel_smem_bytes=launched["j2d5pt stream"][1],
+                  ms=s_ms,
                   plain_ms=s_plain, bound_ms=b_s * 1e3, bound_by=b_by,
                   roofline_share=b_s / (s_ms * 1e-3),
                   gb_per_s=nbytes / (s_ms * 1e-3) / 1e9,
                   launches=stream_launches)
     print("[timing] " + json.dumps(stream), flush=True)
+    model_3d("j2d5pt stream", launched["j2d5pt stream"][0], lifted, s_ms)
     return kernel_entry(
         "stencil3d", SOURCE_3D, REPLACES_3D, launches, max_err, rows,
         "sums of one sweep of each 3-D Table-2 stencil at 2560x288x384 "
         "and EBISU depth, f32; the stream sweep is listed apart",
+        kernel_smem_bytes={r["stencil"]: r["kernel_smem_bytes"]
+                           for r in rows + [stream]},
         stream=stream)
 
 

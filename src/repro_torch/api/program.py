@@ -217,7 +217,8 @@ def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, ...], *,
     grid, halo, padded layout, threads, shared memory, and the cells each
     CTA loads (``fetched_cells``) and writes (``body_cells``).  A 3-D
     spec (a ``stream`` program's lifted one among them) resolves the
-    z-streaming launch, with its ``ring`` slots.
+    z-streaming launch, with the kernel's own shared memory
+    (``kernel_smem_bytes``) beside the planner's budget.
 
         g = resolve_geometry(get("j2d5pt"), 4, (512, 512))
         g["grid"], g["block"], g["halo"]    # what apply() will launch

@@ -24,16 +24,24 @@ Columns are tiled too: at the paper's widths a full-width strip of
 A 3-D plan (and the lifted 2-D ``stream`` mode) describes the z-streaming
 kernel instead (``kernels/csrc/stencil3d.cu``): a CTA owns a
 ``(zc, ty, tx)`` tile of output cells and streams its ``zc + 2·halo``
-input planes through ``t`` rings of ``2·rad+2`` planes in shared memory,
-one ring per time level (the paper's circular multi-queue).  Ring ``s``
-holds planes narrowed in-plane by ``rad`` per step on tiled axes,
-``(ty + 2(t−s)·rad) × (tx + 2(t−s)·rad)``; an untiled axis (its tile
-covers the domain) has no rim, only a zero frame as wide as the taps'
-reach on that axis.  :func:`smem_bytes_3d` is exactly what the kernel
-allocates.  The plan picks the in-plane tile that loads the fewest
-redundant cells (``tx`` a multiple of 32), then the z chunk ``zc`` that
-fills the card's SMs in whole waves while keeping ``zc/(zc+2·halo)``
-high (:func:`fit_tile_3d`).
+input planes through ``t`` time levels.  A level-``s`` plane is
+narrowed in-plane by ``rad`` per step on tiled axes, ``(ty + 2(t−s)·rad)
+× (tx + 2(t−s)·rad)``; an untiled axis (its tile covers the domain) has
+no rim, only a zero frame as wide as the taps' reach on that axis.
+
+:func:`smem_bytes_3d` is the planner's shared-memory budget: ``t``
+levels (``0..t-1``) of ``2·rad+2`` planes each, what the ring design
+before the register-streaming kernel allocated.  The kernel's own
+allocation is :func:`kernel_smem_bytes_3d`, ``2·B`` planes per level
+(``B = planes_per_barrier(rad) <= rad+1``), so it never exceeds the
+budget.  The kernel also bounds the cells a thread owns
+(:func:`max_cells_per_thread`) and the threads of a CTA
+(``KERNEL_THREADS_3D``); :func:`kernel_threads_3d` says whether a
+``(t, tile)`` fits them, and the planner picks no tile that does not.
+The plan picks the in-plane tile that loads the fewest redundant cells
+(``tx`` a multiple of 32), then the z chunk ``zc`` that fills the
+card's SMs in whole waves while keeping ``zc/(zc+2·halo)`` high
+(:func:`fit_tile_3d`).
 """
 from __future__ import annotations
 
@@ -43,7 +51,6 @@ import math
 import functools
 
 from repro_torch.core import roofline as rl
-from repro_torch.core.multiqueue import kernel_layout
 from repro_torch.core.stencil_spec import StencilSpec
 
 THREADS = 512           # blockDim (32, 16): one warp across a tile row
@@ -151,13 +158,89 @@ def ring_extents_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
                 extents=extents)
 
 
+def budget_planes_3d(rad: int) -> int:
+    """Planes a time level takes in :func:`smem_bytes_3d`: ``2·rad+2``,
+    the ring of the z-streaming kernel before register streaming."""
+    return 2 * rad + 2
+
+
 def smem_bytes_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
                   ty: int | None, tx: int | None, itemsize: int) -> int:
-    """Shared memory of one CTA of the 3-D kernel: ``t`` rings (time
-    levels ``0..t-1``) of ``2·rad+2`` planes each."""
-    ring = kernel_layout(t, spec.radius).ring
+    """The planner's shared-memory budget of one 3-D CTA: ``t`` time
+    levels (``0..t-1``) of ``2·rad+2`` planes each.  The kernel allocates
+    :func:`kernel_smem_bytes_3d`, which never exceeds it."""
     ext = ring_extents_3d(spec, t, shape, ty, tx)["extents"]
-    return ring * sum(ey * ex for ey, ex in ext[:t]) * itemsize
+    return (budget_planes_3d(spec.radius)
+            * sum(ey * ex for ey, ex in ext[:t]) * itemsize)
+
+
+# Bounds the 3-D kernel is compiled with (csrc/stencil3d.cu and the header
+# kernels/stencil3d_gen.py writes): threads per CTA, levels per sweep.
+KERNEL_THREADS_3D = 512
+MAX_DEPTH_3D = 32
+
+
+def planes_per_barrier(rad: int) -> int:
+    """``B``: the planes every level advances between two barriers.  Each
+    level keeps two batches of ``B`` planes (written, read), so ``B <=
+    rad + 1`` keeps the kernel within :func:`smem_bytes_3d`."""
+    return min(rad + 1, 3)
+
+
+def max_cells_per_thread(rad: int, itemsize: int) -> int:
+    """The cells a thread of the 3-D kernel owns at most: each keeps
+    ``2·rad`` partial sums in registers, 64 registers of them in all up
+    to radius 2 and 48 beyond, where the kernel also holds more rows of
+    offsets (``python -m repro_torch.launch.stencil3d_registers --regs
+    64``: at 64, ptxas spills dense 128-tap sets of radius 3 and 4 in
+    float64 and the sets of radius 7 and 8)."""
+    regs = 64 if rad <= 2 else 48
+    return max(1, regs * 4 // (2 * rad * itemsize))
+
+
+def level_regions_3d(spec: StencilSpec, t: int, shape, ty, tx) -> list:
+    """``(ny, nx)``: the cells level ``s = 1..t`` computes in one plane
+    (its plane extent on a tiled axis, the domain on an untiled one)."""
+    r = ring_extents_3d(spec, t, shape, ty, tx)
+    (tiled_y, tiled_x) = r["tiled"]
+    return [(ey if tiled_y else shape[1], ex if tiled_x else shape[2])
+            for ey, ex in r["extents"][1:]]
+
+
+def kernel_threads_3d(spec: StencilSpec, t: int,
+                      shape: tuple[int, int, int], ty: int | None,
+                      tx: int | None, itemsize: int
+                      ) -> tuple[list[int], int] | None:
+    """How the 3-D kernel spreads one CTA's cells over its threads:
+    ``(threads of each level 1..t, cells per thread)``, or ``None`` if
+    the kernel refuses the launch.  A thread computes one level; the
+    cells per thread are the fewest that need no more than
+    ``KERNEL_THREADS_3D`` threads, and at most
+    :func:`max_cells_per_thread`.  The wrapper passes the cells per
+    thread to the C launcher, which spreads the levels the same way and
+    refuses more cells than its registers hold or more threads than its
+    block."""
+    if not 1 <= t <= MAX_DEPTH_3D:
+        return None
+    cells = [ny * nx for ny, nx in level_regions_3d(spec, t, shape, ty, tx)]
+    kmax = max_cells_per_thread(spec.radius, itemsize)
+    k = max(1, -(-sum(cells) // KERNEL_THREADS_3D))
+    while k <= kmax:
+        threads = [-(-c // k) for c in cells]
+        if sum(threads) <= KERNEL_THREADS_3D:
+            return threads, k
+        k += 1
+    return None
+
+
+def kernel_smem_bytes_3d(spec: StencilSpec, t: int,
+                         shape: tuple[int, int, int], ty: int | None,
+                         tx: int | None, itemsize: int) -> int:
+    """Shared memory the 3-D kernel allocates: levels ``0..t-1``, each two
+    batches of ``B`` planes (:func:`planes_per_barrier`)."""
+    b = planes_per_barrier(spec.radius)
+    ext = ring_extents_3d(spec, t, shape, ty, tx)["extents"]
+    return 2 * b * sum(ey * ex for ey, ex in ext[:t]) * itemsize
 
 
 def _tile_choices(dim: int, align: int) -> list[tuple[int, int]]:
@@ -200,7 +283,8 @@ def fit_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
                 ) -> tuple[int, int, int, int] | None:
     """The CTA tile ``(zc, ty, tx, resident_ctas)`` of a depth-``t``
     3-D sweep over ``shape``, or ``None`` if no tile with ``tx`` a
-    multiple of 32 (or ``x`` untiled) fits the per-block limit.
+    multiple of 32 (or ``x`` untiled) fits the per-block limit and the
+    kernel's thread and register bounds (:func:`kernel_threads_3d`).
 
     In-plane it minimizes the cells loaded per output cell,
     ``Π (tiles·(tile + 2·halo)) / dim`` over tiled axes (padding
@@ -217,6 +301,8 @@ def fit_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
             if best is not None and eff < best[0] - 1e-12:
                 continue
             if smem_bytes_3d(spec, t, shape, ty, tx, itemsize) > limit:
+                continue
+            if kernel_threads_3d(spec, t, shape, ty, tx, itemsize) is None:
                 continue
             key = (eff, ty * tx)
             if best is None or key > best[:2]:

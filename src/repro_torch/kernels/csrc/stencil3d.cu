@@ -1,274 +1,391 @@
 // EBISU 3-D temporal blocking on Hopper: one CTA streams a z column of a
-// 3-D field through t rings in shared memory (the paper's circular
-// multi-queue, §4.2) and applies t fused Jacobi steps of a 3-D tap set.
+// 3-D field and applies t fused Jacobi steps of a 3-D tap set, the
+// partial sums of each z column held in registers (the paper's register
+// streaming, §4.3) and one plane buffer per time level in shared memory.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/stencil3d.py::_stream_kernel
 // (launched by ebisu3d_padded).  The function is the same: one sweep of t
 // zero-Dirichlet steps on the padded layout, which holds the zdim x ydim x
 // xdim domain at the origin and zeros outside it, on input and on output.
 //
-// Work of a CTA.  It owns a (zc, ty, tx) tile of output cells.  It reads the
-// zc + 2*halo input planes of its column (halo = t*rad), one plane per
-// iteration, into ring 0; ring s (s = 0..t-1) holds planes of time level s,
-// ring slots ring = 2*rad + 2 deep, plane z in slot z % ring (the port's
-// repro_torch.core.multiqueue.MultiQueueLayout, the reference's "shifting"
-// addressing).
-// On a tiled in-plane axis a level-s plane spans tile + 2*(t-s)*rad cells:
-// the trapezoid narrows by rad per step.  An untiled axis (its tile covers
-// the domain) has no rim: its planes span the domain plus a zero frame as
-// wide as the taps' reach on that axis, so the array's edge is the
-// boundary, as the reference's untiled axes are; the lifted 2-D spec has y
-// extent 1 and y reach 0, so its planes are single rows.
+// Taps.  This is a template: it includes stencil3d_taps.cuh, which
+// repro_torch/kernels/stencil3d_gen.py writes for one tap set (offsets,
+// coefficients as exact hexadecimal literals, the compile-time bounds), so
+// every tap loop below unrolls into loads and FMAs with constant offsets
+// and coefficients.  One library per tap set; f32 and f64 are two
+// instantiations in it.  The tile, the extents and the depth t are
+// run-time arguments.
 //
-// Schedule.  In iteration k the CTA loads input plane k into ring 0 and, for
-// every level s = 1..t, computes plane j = k - s*(rad+1) of level s from
-// planes j-rad..j+rad of ring s-1 (levels lag one plane more than the
-// reference's "plane z - s*rad once plane z is in").  The newest plane it
-// reads was written in iteration k-1, and the one slot it does not read is
-// where level s-1 writes its plane of iteration k, so the t levels of one
-// iteration need no barrier between them: one __syncthreads() per
-// iteration orders every write before its reads and every read before the
-// write that reuses its slot.  Level t writes straight to the output, and
-// only the CTA's zc body planes reach it (z trapezoid: level s computes
-// strip planes s*rad .. zc + 2*halo - 1 - s*rad only).  Every cell outside
-// the global domain is set to 0 on load and after every step, on all three
-// axes, so the output's padding is written as 0.
+// Work of a CTA.  It owns a (zc, ty, tx) tile of output cells and reads
+// the span = zc + 2*halo input planes of its column (halo = t*rad).  On a
+// tiled in-plane axis a level-s plane spans tile + 2*(t-s)*rad cells: the
+// trapezoid narrows by rad per step.  An untiled axis (its tile covers the
+// domain) has no rim: its planes span the domain plus a zero frame as wide
+// as the taps' reach on that axis; the lifted 2-D spec has y extent 1 and y
+// reach 0, so its planes are single rows.  Each thread computes one level
+// s = 1..t: the level's plane cells are spread over its threads, cell idx
+// to thread idx % n_s (consecutive threads on consecutive cells), k cells
+// a thread.  The caller passes k (the planner's kernel_threads_3d); the
+// launcher refuses k above ST3_SLOTS_F32/F64, the cells a thread's
+// registers hold, and a spread of more than ST3_THREADS threads.
+//
+// Register streaming.  For each of its cells a thread keeps the 2*rad
+// partial sums of the output planes still waiting for input.  When plane j
+// of level s-1 arrives it reads each distinct in-plane offset of the
+// cell's neighbourhood once (5 reads for j3d7pt, 9 for the box and
+// 13-point stars) and adds it, times each coefficient, into the partial
+// sum of output plane j - dz of every tap at that offset; output plane
+// j - rad is then complete, is masked to the domain and is stored: to the
+// level's plane buffer, or to device memory at level t.  A sum gets its
+// terms plane by plane (dz = -rad first), within a plane in the header's
+// offset order.
+//
+// Schedule.  Every level advances B = ST3_PLANES planes between two
+// barriers.  Level 0 (the input) is copied into its buffer with cp.async,
+// batch it of the span in iteration it, and waited for just before the
+// barrier, so the trip to device memory overlaps the levels' compute.
+// Level s computes in iteration it the batch its level s-1 wrote in
+// iteration it-1, so each level keeps two batches of B planes (parity
+// it & 1: one written, one read) and one barrier per iteration orders
+// every write before its reads and every read before the write that
+// reuses its buffer.  A level skips planes outside its z trapezoid
+// (level s needs strip planes s*rad .. span-1-s*rad); level t writes
+// exactly the zc body planes.  Shared memory: 2*B planes of each level
+// 0..t-1, B <= rad+1, so it never exceeds the planner's budget of 2*rad+2
+// planes a level (kernel_smem_bytes_3d <= smem_bytes_3d).
+//
+// Edges.  A CTA whose whole input column (z span and in-plane rim) lies in
+// the domain runs the interior variant: no domain test at all.  The others
+// run the edge variant, which zero-fills input cells outside the domain
+// (cp.async with source size 0) and stores 0 for every level cell outside
+// it, on all three axes, so the output's padding is written as 0.
 //
 // What bounds it on the card: one sweep must read the domain and write the
-// padded layout once, (domain + padded) cells * sizeof(T) bytes against
-// 3.35 TB/s of HBM3, and it does flops_per_cell * t * domain operations
-// against 67 TFLOP/s fp32 (34 fp64) -- at t = 5 j3d27pt does 76 GFLOP
-// against 2.3 GB, so the deep box stencils are bound by operations and the
-// stars by bytes.  This simple version leaves on the table: the rim each
-// CTA reloads and the trapezoid's redundant cells (tiles of 32 x 32 at
-// depth 8 load 2.25x their body), one plane per barrier, the taps read
-// from kernel parameters in a run-time loop with a modulo-free but
-// per-tap ring index, every intermediate held in shared memory rather than
-// in registers, and plain loads instead of TMA.  Batched or register-
-// resident z windows, TMA plane loads and per-signature unrolled taps are
-// later work.
+// padded layout once, against 3.35 TB/s of HBM3, and do flops_per_cell * t
+// * domain operations against 67 TFLOP/s fp32 (34 fp64).  The trapezoid's
+// redundant cells (tiles of 32 x 32 at depth 8 compute 1.5x their body)
+// and the instructions per cell-update (offset loads, FMAs, the index walk
+// of each cell once per batch) stay above that bound.
 //
-// Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -shared (see
-// src/repro_torch/kernels/_build.py); bound from Python with ctypes, through
-// the plain C functions at the end of this file.  Global offsets are 64-bit:
-// the f64 padded field at the paper's 2560 x 288 x 384 is 2.3 GB.
+// Built with: nvcc -gencode=arch=compute_90a,code=sm_90a -shared -I<dir of
+// the generated header> (see src/repro_torch/kernels/_build.py); bound
+// from Python with ctypes, through the plain C functions at the end of this
+// file.  Global offsets are 64-bit: the f64 padded field at the paper's
+// 2560 x 288 x 384 is 2.3 GB.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#define STENCIL3D_MAX_TAPS 128
-#define STENCIL3D_MAX_RADIUS 8
-#define STENCIL3D_THREADS 512
+#include "stencil3d_taps.cuh"
 
-template <typename T>
-struct TapSet3 {
-  int n;
-  int dz[STENCIL3D_MAX_TAPS];
-  int dy[STENCIL3D_MAX_TAPS];
-  int dx[STENCIL3D_MAX_TAPS];
-  T c[STENCIL3D_MAX_TAPS];
+// One time level's plane (levels 0..t), computed by the launcher.
+struct Level3 {
+  int ey, ex;      // plane extent: rows, and the row pitch of its buffer
+  int y_lo, x_lo;  // first row and column the level computes (level 0: loads)
+  int ny, nx;      // rows and columns it computes
+  int oy, ox;      // global y, x of plane index 0, less the tile's origin
+  int smem;        // element offset of its two batches (levels 0..t-1)
+  int first;       // its first thread (levels 1..t)
 };
 
 struct Geom3 {
   int zdim, ydim, xdim;  // the domain
   int yp, xp;            // padded plane: yp rows of xp cells
-  int zc, ty, tx;        // tile of output cells (ty == ydim: y untiled, ...)
-  int tiled_y, tiled_x;
-  int fy, fx;            // zero frame of an untiled axis (tap reach), else 0
-  int t, rad, ring;
+  int zc, ty, tx;        // output tile (ty == ydim: y untiled, ...)
+  int t, halo, span, nbatch;
+  int threads;           // threads that compute (the end of level t's)
+  int shy, shx;          // level s index i reads level s-1 index i + sh
+  int smem_cells;
+  Level3 lv[ST3_MAX_DEPTH + 1];
 };
 
-// Plane extent of time level s on one in-plane axis.
-__device__ __forceinline__ int level_extent(int tiled, int tile, int dim,
-                                            int frame, int t, int s,
-                                            int rad) {
-  return tiled ? tile + 2 * (t - s) * rad : dim + 2 * frame;
+template <typename T>
+__device__ __forceinline__ T fma_t(T a, T b, T c);
+template <>
+__device__ __forceinline__ float fma_t<float>(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+template <>
+__device__ __forceinline__ double fma_t<double>(double a, double b,
+                                                double c) {
+  return __fma_rn(a, b, c);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(STENCIL3D_THREADS)
-stream3d_kernel(const T* __restrict__ x, T* __restrict__ y, const Geom3 g,
-                const __grid_constant__ TapSet3<T> taps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* rings = reinterpret_cast<T*>(smem_raw);
-  const int nthreads = blockDim.x;
-  const int tid = threadIdx.x;
-  const int rad = g.rad;
-  const int halo = g.t * rad;
-  const int span = g.zc + 2 * halo;
-  const int z_base = blockIdx.z * g.zc - halo;  // global z of strip plane 0
-  const int y_tile = blockIdx.y * g.ty;         // global y of output row 0
-  const int x_tile = blockIdx.x * g.tx;
-  // level s+1 index i reads level s index i + shift on each axis
-  const int shift_y = g.tiled_y ? rad : 0;
-  const int shift_x = g.tiled_x ? rad : 0;
+// Copy N bytes from device to shared memory asynchronously; src_bytes 0
+// writes zeros and reads nothing.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(src_bytes)
+               : "memory");
+}
 
-  // Zero every ring once: the frames of untiled axes are never written.
-  // Shared-memory offsets are 32-bit: the rings hold < 2^16 cells.
-  int total = 0;
-  for (int s = 0; s < g.t; ++s) {
-    total += g.ring *
-             level_extent(g.tiled_y, g.ty, g.ydim, g.fy, g.t, s, rad) *
-             level_extent(g.tiled_x, g.tx, g.xdim, g.fx, g.t, s, rad);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename T, int K, bool EDGE>
+__device__ __forceinline__ void stream_cta(const T* __restrict__ x,
+                                           T* __restrict__ y,
+                                           const Geom3& g, T* sm) {
+  constexpr int R = ST3_RADIUS;
+  constexpr int B = ST3_PLANES;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int z_base = blockIdx.z * g.zc - g.halo;  // global z of strip plane 0
+  const int y_tile = blockIdx.y * g.ty;
+  const int x_tile = blockIdx.x * g.tx;
+  const size_t gplane = static_cast<size_t>(g.yp) * g.xp;
+
+  // level 0: this thread loads cells tid, tid + nth, ... of each plane
+  const Level3& L0 = g.lv[0];
+  const int n0 = L0.ny * L0.nx;
+  const int plane0 = L0.ey * L0.ex;
+  const int q0 = nth / L0.nx, r0 = nth % L0.nx;
+  const int iy0 = tid / L0.nx, ix0 = tid % L0.nx;
+  const int gy00 = y_tile + L0.oy + L0.y_lo;  // global y of load row 0
+  const int gx00 = x_tile + L0.ox + L0.x_lo;
+
+  // the level this thread computes, and its first cell
+  int s = 1;
+  while (s < g.t && tid >= g.lv[s + 1].first) ++s;
+  const bool computes = tid < g.threads;
+  const bool last = s == g.t;
+  const Level3& L = g.lv[s];
+  const Level3& Lp = g.lv[s - 1];
+  const int n_s = (last ? g.threads : g.lv[s + 1].first) - L.first;
+  const int lt = computes ? tid - L.first : 0;
+  const int q = n_s / L.nx, r = n_s % L.nx;
+  const int iys = lt / L.nx, ixs = lt % L.nx;
+  const int plane = L.ey * L.ex;
+  const int plane_p = Lp.ey * Lp.ex;
+  const int src0 = (L.y_lo + g.shy) * Lp.ex + L.x_lo + g.shx;
+  const int dst0 = L.y_lo * L.ex + L.x_lo;
+  const int gy0 = y_tile + L.oy + L.y_lo;  // global y of computed row 0
+  const int gx0 = x_tile + L.ox + L.x_lo;
+
+  T acc[K][2 * R];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int i = 0; i < 2 * R; ++i) acc[k][i] = T(0);
   }
-  for (int i = tid; i < total; i += nthreads) rings[i] = T(0);
+  // Zero every buffer once: the frames of untiled axes are never written.
+  for (int i = tid; i < g.smem_cells; i += nth) sm[i] = T(0);
   __syncthreads();
 
-  for (int k = 0; k < span + g.t; ++k) {
-    // ---- level 0: input plane k into ring 0 ----------------------------
-    {
-      const int ey = level_extent(g.tiled_y, g.ty, g.ydim, g.fy, g.t, 0, rad);
-      const int ex = level_extent(g.tiled_x, g.tx, g.xdim, g.fx, g.t, 0, rad);
-      if (k < span) {
-        const int gz = z_base + k;
-        const bool z_in = gz >= 0 && gz < g.zdim;
-        const int y_lo = g.tiled_y ? 0 : g.fy;
-        const int x_lo = g.tiled_x ? 0 : g.fx;
-        const int ny = g.tiled_y ? ey : g.ydim;
-        const int nx = g.tiled_x ? ex : g.xdim;
-        const int y_org = g.tiled_y ? y_tile - halo : -g.fy;
-        const int x_org = g.tiled_x ? x_tile - halo : -g.fx;
-        T* dst = rings + (k % g.ring) * ey * ex;
-        for (int idx = tid; idx < ny * nx; idx += nthreads) {
-          const int iy = y_lo + idx / nx;
-          const int ix = x_lo + idx % nx;
-          const int gy = y_org + iy;
-          const int gx = x_org + ix;
-          T v = T(0);
-          if (z_in && gy >= 0 && gy < g.ydim && gx >= 0 && gx < g.xdim) {
-            v = x[(static_cast<size_t>(gz) * g.yp + gy) * g.xp + gx];
-          }
-          dst[iy * ex + ix] = v;
-        }
-      }
-    }
-    // ---- levels 1..t: plane k - s*(rad+1) of level s from ring s-1 -----
-    int prev_base = 0;
-    for (int s = 1; s <= g.t; ++s) {
-      const int ey_prev =
-          level_extent(g.tiled_y, g.ty, g.ydim, g.fy, g.t, s - 1, rad);
-      const int ex_prev =
-          level_extent(g.tiled_x, g.tx, g.xdim, g.fx, g.t, s - 1, rad);
-      const int prev_plane = ey_prev * ex_prev;
-      const int cur_base = prev_base + g.ring * prev_plane;
-      const int j = k - s * (rad + 1);
-      if (j >= s * rad && j <= span - 1 - s * rad) {
-        const int ey = level_extent(g.tiled_y, g.ty, g.ydim, g.fy, g.t, s,
-                                    rad);
-        const int ex = level_extent(g.tiled_x, g.tx, g.xdim, g.fx, g.t, s,
-                                    rad);
-        const int gz = z_base + j;
-        const bool z_in = gz >= 0 && gz < g.zdim;
-        const int y_lo = g.tiled_y ? 0 : g.fy;
-        const int x_lo = g.tiled_x ? 0 : g.fx;
-        const int ny = g.tiled_y ? ey : g.ydim;
-        const int nx = g.tiled_x ? ex : g.xdim;
-        const int y_org = g.tiled_y ? y_tile - (g.t - s) * rad : -g.fy;
-        const int x_org = g.tiled_x ? x_tile - (g.t - s) * rad : -g.fx;
-        const int jm = j % g.ring;
-        const T* src = rings + prev_base;
-        T* dst = rings + cur_base + jm * ey * ex;
-        for (int idx = tid; idx < ny * nx; idx += nthreads) {
-          const int iy = y_lo + idx / nx;
-          const int ix = x_lo + idx % nx;
-          const int gy = y_org + iy;
-          const int gx = x_org + ix;
-          T acc = T(0);
-          if (z_in && gy >= 0 && gy < g.ydim && gx >= 0 && gx < g.xdim) {
-            const int cell = (iy + shift_y) * ex_prev + ix + shift_x;
-            for (int q = 0; q < taps.n; ++q) {
-              int slot = jm + taps.dz[q];
-              slot += slot < 0 ? g.ring : 0;
-              slot -= slot >= g.ring ? g.ring : 0;
-              const int off = cell + taps.dy[q] * ex_prev + taps.dx[q];
-              const T v = src[slot * prev_plane + off];
-              acc = q == 0 ? v * taps.c[0] : acc + v * taps.c[q];
+  for (int it = 0; it < g.nbatch + g.t; ++it) {
+    // ---- level 0: input batch it into its buffer it & 1, asynchronously
+    if (it < g.nbatch) {
+      T* buf = sm + L0.smem + (it & 1) * B * plane0 + L0.y_lo * L0.ex +
+               L0.x_lo;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int p = it * B + b;
+        if (p < g.span) {
+          const int gz = z_base + p;
+          const bool z_in = !EDGE || (gz >= 0 && gz < g.zdim);
+          int iy = iy0, ix = ix0;
+          for (int idx = tid; idx < n0; idx += nth) {
+            const int gy = gy00 + iy;
+            const int gx = gx00 + ix;
+            bool in = true;
+            if (EDGE) {
+              in = z_in && gy >= 0 && gy < g.ydim && gx >= 0 && gx < g.xdim;
+            }
+            const T* src = in ? x + static_cast<size_t>(gz) * gplane +
+                                    static_cast<size_t>(gy) * g.xp + gx
+                              : x;
+            cp_async<sizeof(T)>(buf + b * plane0 + iy * L0.ex + ix, src,
+                                in ? static_cast<int>(sizeof(T)) : 0);
+            ix += r0;
+            iy += q0;
+            if (ix >= L0.nx) {
+              ix -= L0.nx;
+              ++iy;
             }
           }
-          if (s < g.t) {
-            dst[iy * ex + ix] = acc;
-          } else {
-            y[(static_cast<size_t>(gz) * g.yp + gy) * g.xp + gx] = acc;
-          }
         }
       }
-      prev_base = cur_base;
     }
+    // ---- level s: batch m = it - s, from level s-1's batch of it-1 ------
+    const int m = it - s;
+    if (computes && m >= 0 && m < g.nbatch) {
+      const T* src_b = sm + Lp.smem + ((it - 1) & 1) * B * plane_p + src0;
+      T* dst_b = sm + L.smem + (it & 1) * B * plane + dst0;
+      bool in_ok[B], out_ok[B], z_in[B];
+      size_t gz_off[B];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int p_in = m * B - (s - 1) * R + b;  // plane of level s-1
+        const int p_out = p_in - R;                // plane it completes
+        in_ok[b] = p_in >= (s - 1) * R && p_in < g.span - (s - 1) * R;
+        out_ok[b] = p_out >= s * R && p_out < g.span - s * R;
+        const int gz = z_base + p_out;
+        z_in[b] = !EDGE || (gz >= 0 && gz < g.zdim);
+        gz_off[b] = out_ok[b] && last ? static_cast<size_t>(gz) * gplane : 0;
+      }
+      int iy = iys, ix = ixs;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (iy < L.ny) {
+          const T* c0 = src_b + iy * Lp.ex + ix;
+          const int d = iy * L.ex + ix;
+          bool in_plane = true;
+          if (EDGE) {
+            in_plane = gy0 + iy >= 0 && gy0 + iy < g.ydim && gx0 + ix >= 0 &&
+                       gx0 + ix < g.xdim;
+          }
+          const size_t go = static_cast<size_t>(gy0 + iy) * g.xp + gx0 + ix;
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            T w[2 * R + 1];
+#pragma unroll
+            for (int i = 0; i < 2 * R; ++i) w[i] = acc[k][i];
+            w[2 * R] = T(0);
+            if (in_ok[b]) {
+              const T* c = c0 + b * plane_p;
+#define ST3_OFFSET(DY, DX, TERMS)              \
+  {                                            \
+    const T v = c[(DY) * Lp.ex + (DX)];        \
+    TERMS                                      \
+  }
+#define ST3_TAP(DZ, COEF) \
+  w[R - (DZ)] = fma_t<T>(static_cast<T>(COEF), v, w[R - (DZ)]);
+              ST3_OFFSETS(ST3_OFFSET, ST3_TAP)
+#undef ST3_TAP
+#undef ST3_OFFSET
+            }
+            if (out_ok[b]) {
+              T o = w[0];
+              if (EDGE && !(z_in[b] && in_plane)) o = T(0);
+              if (last) {
+                y[gz_off[b] + go] = o;
+              } else {
+                dst_b[b * plane + d] = o;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 2 * R; ++i) acc[k][i] = w[i + 1];
+          }
+        }
+        ix += r;
+        iy += q;
+        if (ix >= L.nx) {
+          ix -= L.nx;
+          ++iy;
+        }
+      }
+    }
+    cp_async_wait_all();
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, int K>
+__global__ void __launch_bounds__(ST3_THREADS, 1)
+    stream3d_kernel(const T* __restrict__ x, T* __restrict__ y,
+                    const __grid_constant__ Geom3 g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const Level3& L0 = g.lv[0];
+  const int z_base = blockIdx.z * g.zc - g.halo;
+  const int gy = blockIdx.y * g.ty + L0.oy + L0.y_lo;
+  const int gx = blockIdx.x * g.tx + L0.ox + L0.x_lo;
+  const bool interior = z_base >= 0 && z_base + g.span <= g.zdim &&
+                        gy >= 0 && gy + L0.ny <= g.ydim && gx >= 0 &&
+                        gx + L0.nx <= g.xdim;
+  if (interior) {
+    stream_cta<T, K, false>(x, y, g, sm);
+  } else {
+    stream_cta<T, K, true>(x, y, g, sm);
+  }
+}
+
+// The launch's geometry: levels, thread spread (k cells a thread) and
+// shared memory, as the planner's kernel_threads_3d and
+// kernel_smem_bytes_3d compute them.  Returns cudaErrorInvalidValue for
+// what the kernel cannot run.
+static int plan_launch(int itemsize, int slots, int zdim, int ydim, int xdim,
+                       int t, int zc, int ty, int tx, int k, Geom3* g,
+                       int* block, size_t* smem) {
+  constexpr int R = ST3_RADIUS;
+  constexpr int B = ST3_PLANES;
+  if (t < 1 || t > ST3_MAX_DEPTH || zc < 1 || ty < 1 || tx < 1 ||
+      zdim < 1 || ydim < 1 || xdim < 1 || k < 1 || k > slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool tiled_y = ty < ydim, tiled_x = tx < xdim;
+  const int fy = tiled_y ? 0 : ST3_REACH_Y;
+  const int fx = tiled_x ? 0 : ST3_REACH_X;
+  g->zdim = zdim;
+  g->ydim = ydim;
+  g->xdim = xdim;
+  g->zc = zc;
+  g->ty = tiled_y ? ty : ydim;
+  g->tx = tiled_x ? tx : xdim;
+  g->t = t;
+  g->halo = t * R;
+  g->span = zc + 2 * g->halo;
+  g->nbatch = (g->span + B - 1) / B;
+  g->shy = tiled_y ? R : 0;
+  g->shx = tiled_x ? R : 0;
+  long long cells = 0, first = 0;
+  for (int s = 0; s <= t; ++s) {
+    Level3& L = g->lv[s];
+    const int rim = (t - s) * R;
+    L.ey = tiled_y ? g->ty + 2 * rim : ydim + 2 * fy;
+    L.ex = tiled_x ? g->tx + 2 * rim : xdim + 2 * fx;
+    L.y_lo = tiled_y ? 0 : fy;
+    L.x_lo = tiled_x ? 0 : fx;
+    L.ny = tiled_y ? L.ey : ydim;
+    L.nx = tiled_x ? L.ex : xdim;
+    L.oy = tiled_y ? -rim : -fy;
+    L.ox = tiled_x ? -rim : -fx;
+    L.smem = static_cast<int>(cells);
+    L.first = static_cast<int>(first);
+    if (s < t) cells += 2LL * B * L.ey * L.ex;
+    if (s > 0) first += (static_cast<long long>(L.ny) * L.nx + k - 1) / k;
+    if (first > ST3_THREADS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g->threads = static_cast<int>(first);
+  g->smem_cells = static_cast<int>(cells);
+  *block = (g->threads + 31) / 32 * 32;
+  *smem = static_cast<size_t>(cells) * itemsize;
+  return 0;
+}
+
+template <typename T, int K>
 static int launch(const T* x, T* y, int zp, int yp, int xp, int zdim,
-                  int ydim, int xdim, int t, int zc, int ty, int tx,
-                  int ring, int threads, int ntaps, const int* dz,
-                  const int* dy, const int* dx, const double* coef,
+                  int ydim, int xdim, int t, int zc, int ty, int tx, int k,
                   void* stream) {
-  if (ntaps < 1 || ntaps > STENCIL3D_MAX_TAPS || t < 1 || zc < 1 ||
-      ty < 1 || tx < 1 || threads < 32 || threads % 32 != 0 ||
-      threads > STENCIL3D_THREADS || zdim < 1 || ydim < 1 || xdim < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  TapSet3<T> taps;
-  taps.n = ntaps;
-  int rad = 0, reach_y = 0, reach_x = 0;
-  for (int q = 0; q < ntaps; ++q) {
-    taps.dz[q] = dz[q];
-    taps.dy[q] = dy[q];
-    taps.dx[q] = dx[q];
-    taps.c[q] = static_cast<T>(coef[q]);
-    const int az = dz[q] < 0 ? -dz[q] : dz[q];
-    const int ay = dy[q] < 0 ? -dy[q] : dy[q];
-    const int ax = dx[q] < 0 ? -dx[q] : dx[q];
-    if (az > rad) rad = az;
-    if (ay > rad) rad = ay;
-    if (ax > rad) rad = ax;
-    if (ay > reach_y) reach_y = ay;
-    if (ax > reach_x) reach_x = ax;
-  }
-  if (rad < 1 || rad > STENCIL3D_MAX_RADIUS || ring < 2 * rad + 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Geom3 g;
-  g.zdim = zdim;
-  g.ydim = ydim;
-  g.xdim = xdim;
+  int block = 0;
+  size_t smem = 0;
+  int err = plan_launch(sizeof(T), K, zdim, ydim, xdim, t, zc, ty, tx, k, &g,
+                        &block, &smem);
+  if (err != 0) return err;
   g.yp = yp;
   g.xp = xp;
-  g.zc = zc;
-  g.tiled_y = ty < ydim;
-  g.tiled_x = tx < xdim;
-  g.ty = g.tiled_y ? ty : ydim;
-  g.tx = g.tiled_x ? tx : xdim;
-  g.fy = g.tiled_y ? 0 : reach_y;
-  g.fx = g.tiled_x ? 0 : reach_x;
-  g.t = t;
-  g.rad = rad;
-  g.ring = ring;
   // the padded layout: z and tiled axes whole tiles, untiled axes the domain
-  if (zp % zc != 0 || zp < zdim || (g.tiled_y ? yp % g.ty != 0 || yp < ydim
-                                              : yp != ydim) ||
-      (g.tiled_x ? xp % g.tx != 0 || xp < xdim : xp != xdim)) {
+  if (zp % zc != 0 || zp < zdim ||
+      (g.ty < ydim ? yp % g.ty != 0 || yp < ydim : yp != ydim) ||
+      (g.tx < xdim ? xp % g.tx != 0 || xp < xdim : xp != xdim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t cells = 0;
-  for (int s = 0; s < t; ++s) {
-    const size_t ey = g.tiled_y ? g.ty + 2 * (t - s) * rad : ydim + 2 * g.fy;
-    const size_t ex = g.tiled_x ? g.tx + 2 * (t - s) * rad : xdim + 2 * g.fx;
-    cells += static_cast<size_t>(ring) * ey * ex;
-  }
-  const size_t smem = cells * sizeof(T);
   const dim3 grid(xp / g.tx, yp / g.ty, zp / zc);
   if (smem > 0x7fffffff || grid.y > 65535 || grid.z > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      stream3d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(
+      stream3d_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream3d_kernel<T><<<grid, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(x, y, g, taps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  stream3d_kernel<T, K><<<grid, block, smem,
+                          static_cast<cudaStream_t>(stream)>>>(x, y, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -276,20 +393,30 @@ extern "C" {
 
 int stencil3d_f32(const float* x, float* y, int zp, int yp, int xp,
                   int zdim, int ydim, int xdim, int t, int zc, int ty,
-                  int tx, int ring, int threads, int ntaps, const int* dz,
-                  const int* dy, const int* dx, const double* coef,
-                  void* stream) {
-  return launch<float>(x, y, zp, yp, xp, zdim, ydim, xdim, t, zc, ty, tx,
-                       ring, threads, ntaps, dz, dy, dx, coef, stream);
+                  int tx, int k, void* stream) {
+  return launch<float, ST3_SLOTS_F32>(x, y, zp, yp, xp, zdim, ydim, xdim, t,
+                                      zc, ty, tx, k, stream);
 }
 
 int stencil3d_f64(const double* x, double* y, int zp, int yp, int xp,
                   int zdim, int ydim, int xdim, int t, int zc, int ty,
-                  int tx, int ring, int threads, int ntaps, const int* dz,
-                  const int* dy, const int* dx, const double* coef,
-                  void* stream) {
-  return launch<double>(x, y, zp, yp, xp, zdim, ydim, xdim, t, zc, ty, tx,
-                        ring, threads, ntaps, dz, dy, dx, coef, stream);
+                  int tx, int k, void* stream) {
+  return launch<double, ST3_SLOTS_F64>(x, y, zp, yp, xp, zdim, ydim, xdim,
+                                       t, zc, ty, tx, k, stream);
+}
+
+// The block size and shared memory a launch of k cells a thread would take
+// (0), or the error code it would return.
+int stencil3d_shape(int itemsize, int zdim, int ydim, int xdim, int t,
+                    int zc, int ty, int tx, int k, int* block,
+                    long long* smem_bytes) {
+  Geom3 g;
+  size_t smem = 0;
+  const int slots = itemsize == 8 ? ST3_SLOTS_F64 : ST3_SLOTS_F32;
+  const int err = plan_launch(itemsize, slots, zdim, ydim, xdim, t, zc, ty,
+                              tx, k, &g, block, &smem);
+  *smem_bytes = static_cast<long long>(smem);
+  return err;
 }
 
 const char* stencil3d_error_string(int code) {

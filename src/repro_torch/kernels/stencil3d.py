@@ -16,7 +16,11 @@ outside the domain.
     every step.  No CUDA tensor ever takes the plain version.
 
 A CTA computes a ``(zc, ty, tx)`` tile of output cells, streaming its z
-column plane by plane through the multi-queue (see the source's header).
+column through ``t`` time levels, ``B`` planes per barrier, with each
+cell's z partial sums in registers (see the source's header).  The
+source is a template: its taps come from a header generated per tap set
+(``kernels/stencil3d_gen.py``), one library per tap set, built at first
+use (``_build``).
 The layout pads z to a multiple of ``zc`` and each tiled in-plane axis to
 a multiple of its tile.  An untiled in-plane axis (no tile, or a tile
 that covers the domain) is not padded: its edge is the boundary.  The
@@ -27,19 +31,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
-from repro_torch.core.multiqueue import kernel_layout
-from repro_torch.core.planner import (THREADS, _pad_to, ring_extents_3d,
-                                      smem_bytes_3d)
+from repro_torch.core.planner import (_pad_to, budget_planes_3d,
+                                      kernel_smem_bytes_3d,
+                                      kernel_threads_3d, level_regions_3d,
+                                      ring_extents_3d, smem_bytes_3d)
 from repro_torch.core.stencil_spec import StencilSpec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, stencil3d_gen
 from repro_torch.kernels.taps import engine_for, split_star
 
-MAX_TAPS = 128          # STENCIL3D_MAX_TAPS in csrc/stencil3d.cu
-MAX_RADIUS = 8          # STENCIL3D_MAX_RADIUS
+MAX_TAPS = 128          # the most taps a tap-set library is built for
+MAX_RADIUS = 8
 
 
 def chunk_geometry(spec: StencilSpec, t: int, zc: int) -> tuple[int, int]:
@@ -56,13 +62,19 @@ def launch_geometry_3d(spec: StencilSpec, t: int,
                        ty: int | None = None, tx: int | None = None,
                        itemsize: int = 4) -> dict:
     """The launch a 3-D sweep over ``shape`` executes: grid, block
-    ``(zc, ty, tx)``, halo, per-axis tiled flags, the padded layout,
-    threads, ring slots, shared memory, and the cells each CTA loads
-    (``fetched_cells``) and writes (``body_cells``).  ``ty``/``tx`` are
-    resolved by ``planner.resolve_axis`` (the reference's ``xy_tile``):
-    ``None``, or a tile that covers the domain, leaves the axis untiled;
-    tiles narrower than the halo are fine, since the kernel reads its
-    rim from the neighbouring tiles."""
+    ``(zc, ty, tx)``, halo, per-axis tiled flags, the padded layout, the
+    threads of a CTA (``threads``, ``None`` if the kernel refuses the
+    launch) and the cells each owns at most (``cells_per_thread``, which
+    the wrapper passes to the kernel's launcher), the
+    planner's shared-memory budget (``smem_bytes``, ``ring`` planes per
+    level) beside what the kernel allocates (``kernel_smem_bytes``), the
+    cells each CTA loads (``fetched_cells``) and writes (``body_cells``),
+    and the stencil applications the whole launch computes, trapezoid
+    included (``cell_updates``).  ``ty``/``tx`` are resolved by
+    ``planner.resolve_axis`` (the reference's ``xy_tile``): ``None``, or
+    a tile that covers the domain, leaves the axis untiled; tiles
+    narrower than the halo are fine, since the kernel reads its rim from
+    the neighbouring tiles."""
     zdim, ydim, xdim = shape
     zc, halo = chunk_geometry(spec, t, zc)
     rings = ring_extents_3d(spec, t, shape, ty, tx)
@@ -72,14 +84,25 @@ def launch_geometry_3d(spec: StencilSpec, t: int,
     xp = _pad_to(xdim, tx) if tiled_x else xdim
     ey0, ex0 = rings["extents"][0]
     fy, fx = rings["frame"]
-    return dict(grid=(zp // zc, yp // ty, xp // tx), block=(zc, ty, tx),
+    spread = kernel_threads_3d(spec, t, shape, ty, tx, itemsize)
+    grid = (zp // zc, yp // ty, xp // tx)
+    return dict(grid=grid, block=(zc, ty, tx),
                 halo=halo, tiled=(True, tiled_y, tiled_x),
-                padded=(zp, yp, xp), threads=THREADS,
-                ring=kernel_layout(t, spec.radius).ring,
+                padded=(zp, yp, xp),
+                threads=None if spread is None else _pad_to(sum(spread[0]),
+                                                            32),
+                cells_per_thread=None if spread is None else spread[1],
+                ring=budget_planes_3d(spec.radius),
                 smem_bytes=smem_bytes_3d(spec, t, shape, ty, tx, itemsize),
+                kernel_smem_bytes=kernel_smem_bytes_3d(spec, t, shape, ty,
+                                                       tx, itemsize),
                 fetched_cells=(zc + 2 * halo) * (ey0 - 2 * fy)
                 * (ex0 - 2 * fx),
-                body_cells=zc * ty * tx)
+                body_cells=zc * ty * tx,
+                cell_updates=math.prod(grid) * sum(
+                    ny * nx * (zc + 2 * (t - s) * spec.radius)
+                    for s, (ny, nx) in enumerate(
+                        level_regions_3d(spec, t, shape, ty, tx), 1)))
 
 
 def padded_shape_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
@@ -93,7 +116,8 @@ def padded_shape_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
 def kernel_taps(taps) -> tuple[np.ndarray, ...]:
     """``(dz, dy, dx, coef)`` in the order the plain version sums them:
     for a star set the center, then each axis's arms; otherwise tap
-    order."""
+    order.  The single source of the tap order: the header generator
+    (``stencil3d_gen.tap_groups``) reads it."""
     if len(taps) > MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes at most {MAX_TAPS} taps; "
                          f"this stencil has {len(taps)}")
@@ -148,7 +172,8 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                          "takes 3-D stencils (lift a 2-D one with "
                          "lift_2d_to_3d)")
     shape = (zdim, ydim, xdim)
-    geom = launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    geom = launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
+                              itemsize=xp.element_size())
     _check_padded(xp, shape, geom)
     if out is None:
         out = torch.empty_like(xp)
@@ -170,8 +195,41 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
 ebisu3d_padded.launches = 0
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 13 + [
-    ctypes.c_void_p] * 5
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11 + [
+    ctypes.c_void_p]
+
+
+def tapset_header(spec: StencilSpec) -> str:
+    """The generated header of ``spec``'s tap set (refuses what no
+    library is built for: more than ``MAX_TAPS`` taps, radius beyond
+    ``MAX_RADIUS``)."""
+    kernel_taps(spec.taps)
+    return stencil3d_gen.header(tuple(spec.taps))
+
+
+def library_for(spec: StencilSpec) -> ctypes.CDLL:
+    """The kernel library of ``spec``'s tap set, built at first use."""
+    return _build.library("stencil3d", tapset_header(spec))
+
+
+def launch_shape(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                 geom: dict, itemsize: int) -> tuple[int, int]:
+    """``(threads of a CTA, shared-memory bytes)`` of a launch, as the
+    library's own launcher computes them (``stencil3d_shape``, which
+    launches nothing); raises ``RuntimeError`` where the launch would
+    fail."""
+    lib = library_for(spec)
+    fn = lib.stencil3d_shape
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    block, smem = ctypes.c_int(), ctypes.c_longlong()
+    err = fn(itemsize, *shape, t, *geom["block"],
+             geom["cells_per_thread"] or 0, ctypes.addressof(block),
+             ctypes.addressof(smem))
+    if err != 0:
+        raise RuntimeError(f"stencil3d refuses the launch: {spec.name} "
+                           f"t={t} tile {geom['block']} itemsize {itemsize}")
+    return block.value, smem.value
 
 
 def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
@@ -184,8 +242,7 @@ def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
     if out.data_ptr() == xp.data_ptr():
         raise ValueError("out must not alias xp: CTAs read xp while others "
                          "write out")
-    dz, dy, dx, coef = kernel_taps(spec.taps)
-    lib = _build.library("stencil3d")
+    lib = library_for(spec)
     fn = lib.stencil3d_f32 if xp.dtype == torch.float32 else lib.stencil3d_f64
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
@@ -193,9 +250,7 @@ def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         err = fn(xp.data_ptr(), out.data_ptr(), *geom["padded"], *shape, t,
-                 zc, ty, tx, geom["ring"], geom["threads"], len(dz),
-                 dz.ctypes.data, dy.ctypes.data, dx.ctypes.data,
-                 coef.ctypes.data, stream)
+                 zc, ty, tx, geom["cells_per_thread"] or 0, stream)
     if err != 0:
         lib.stencil3d_error_string.restype = ctypes.c_char_p
         lib.stencil3d_error_string.argtypes = [ctypes.c_int]

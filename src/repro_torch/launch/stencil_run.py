@@ -69,7 +69,8 @@ def run_single(spec: StencilSpec | str, *, t: int | None = None,
     line = (f"[stencil] {spec.name:11s} domain={shape} t={depth} {how} "
             f"boundary={boundary!r} device={prog.device} "
             f"plan(t={prog.plan.t}, tile={g['block']}, grid={g['grid']}, "
-            f"threads={g['threads']}, smem={g['smem_bytes']}B) "
+            f"threads={g['threads']}, "
+            f"smem={g.get('kernel_smem_bytes', g['smem_bytes'])}B) "
             f"{dt * 1e3:.1f}ms")
     if check:
         want = ref.reference(x, spec, depth, boundary=boundary)

@@ -19,6 +19,7 @@ from repro_torch.core import stencil_spec as tspec
 from repro_torch.kernels import ref
 from repro_torch.kernels import stencil2d as st
 from repro_torch.kernels import stencil3d as st3
+from repro_torch.launch.stencil3d_registers import dense_spec, probe_specs
 
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
 BOUNDARIES = [Boundary.dirichlet(0.0), Boundary.dirichlet(0.7),
@@ -142,6 +143,154 @@ def test_kernel_lifted_2d_matches_plain(cuda_device, name, tx):
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
+# an asymmetric radius-2 tap set whose dz != 0 taps sit off the centre
+# column, and the 125-tap radius-2 box (tests/test_torch_stencil3d.py
+# replays both on the CPU)
+ASYM_R2 = tspec.define_stencil(
+    [((0, 0, 0), 0.31), ((-2, 0, 1), 0.07), ((1, -1, 0), 0.11),
+     ((2, 1, -2), 0.05), ((-1, 2, 0), 0.13), ((0, 0, -1), 0.09),
+     ((1, 0, 1), 0.1), ((0, -2, 2), 0.06), ((-2, -1, -1), 0.08)],
+    name="asym-r2", normalize=True)
+BOX_R2 = tspec.define_stencil(tspec.box_taps(3, 2), name="box-r2",
+                              normalize=True)
+# radius 4 (a star) and radius 8, the kernel's bound (a star with taps off
+# its axes): few cells a thread, 2·rad partial sums each
+STAR_R4 = tspec.define_stencil(tspec.star_taps(3, 4), name="star-r4",
+                               normalize=True)
+ASYM_R8 = tspec.define_stencil(
+    list(tspec.star_taps(3, 8)) + [((-8, 3, -5), 0.02), ((7, -8, 8), 0.03),
+                                   ((5, 6, -7), 0.01)],
+    name="asym-r8", normalize=True)
+CUSTOM_3D = {s.name: s for s in (ASYM_R2, BOX_R2, STAR_R4, ASYM_R8,
+                                  dense_spec(8))}
+# radius 8 fits fewer cells a thread (3 in f32, 1 in f64): TILINGS_3D's
+# second and third would need more than 512 threads
+TILINGS_R8 = [TILINGS_3D[0], ((23, 17, 40), 2, 7, 2, 8), TILINGS_3D[3],
+              ((16, 12, 40), 1, 16, None, 16)]
+CUSTOM_CASES_3D = [(n, *tl) for n in ("asym-r2", "box-r2", "star-r4")
+                   for tl in TILINGS_3D] + [(n, *tl)
+                                            for n in ("asym-r8", "dense-r8")
+                                            for tl in TILINGS_R8]
+# (shape, t, zc, ty, tx, interior share): most CTAs interior (the
+# variant without domain tests), and every CTA an edge one
+EDGE_TILINGS_3D = [((96, 96, 96), 2, 8, 8, 8, 0.5),
+                   ((24, 40, 44), 2, 24, None, None, 0.0)]
+
+
+def spec_3d(name):
+    return CUSTOM_3D.get(name) or tspec.get(name)
+
+
+def interior_ctas(spec, t, shape, *, zc, ty=None, tx=None):
+    """How many CTAs of a launch run the kernel's interior variant (no
+    domain test): those whose input column, the z span and the in-plane
+    rim, lies inside the domain."""
+    geom = st3.launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    halo = geom["halo"]
+    _, ty, tx = geom["block"]
+    _, tiled_y, tiled_x = geom["tiled"]
+
+    def inside(n, tile, dim, tiled):
+        if not tiled:
+            return n                # an untiled axis loads the domain
+        return sum(1 for i in range(n)
+                   if i * tile - halo >= 0 and (i + 1) * tile + halo <= dim)
+
+    gz, gy, gx = geom["grid"]
+    return (inside(gz, zc, shape[0], True) * inside(gy, ty, shape[1], tiled_y)
+            * inside(gx, tx, shape[2], tiled_x))
+
+
+def kernel_vs_plain_3d(spec, dtype, shape, t, zc, ty, tx, device):
+    xp = padded_3d(shape, t, spec, zc, ty, tx, dtype, device)
+    kw = dict(zdim=shape[0], ydim=shape[1], xdim=shape[2])
+    before = st3.ebisu3d_padded.launches
+    got = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+    again = st3.ebisu3d_padded(xp, spec, t, zc=zc, ty=ty, tx=tx, **kw)
+    torch.cuda.synchronize()
+    assert st3.ebisu3d_padded.launches == before + 2
+    assert torch.equal(got, again)          # a missing barrier would race
+    want = st3.ebisu3d_padded_plain(xp, spec, t, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,shape,t,zc,ty,tx", CUSTOM_CASES_3D)
+def test_kernel_3d_custom_taps_match_plain(cuda_device, name, dtype, shape,
+                                           t, zc, ty, tx):
+    kernel_vs_plain_3d(spec_3d(name), dtype, shape, t, zc, ty, tx,
+                       cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_3D + ["asym-r2", "box-r2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,t,zc,ty,tx,share", EDGE_TILINGS_3D)
+def test_kernel_3d_interior_and_edge_ctas_match_plain(
+        cuda_device, name, dtype, shape, t, zc, ty, tx, share):
+    spec = spec_3d(name)
+    g = st3.launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    interior = interior_ctas(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    assert (interior > share * np.prod(g["grid"]) if share
+            else interior == 0)
+    kernel_vs_plain_3d(spec, dtype, shape, t, zc, ty, tx, cuda_device)
+
+
+@pytest.mark.cuda
+def test_stencil3d_build_has_no_spills(cuda_device):
+    """ptxas's report of every tap-set library the card tests build, and
+    of a star and a dense 128-tap set at each radius 3..8 (built in
+    parallel): no instantiation (f32 and f64) stores a spill or keeps a
+    stack frame, and each fits 128 registers (512 threads on an SM)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    specs = ([tspec.get(n) for n in SPECS_3D]
+             + [tspec.lift_2d_to_3d(tspec.get(n)) for n in SPECS_2D]
+             + list(CUSTOM_3D.values()) + probe_specs(range(3, 9)))
+    headers = list(dict.fromkeys(st3.tapset_header(s) for s in specs))
+    with ThreadPoolExecutor(len(headers)) as pool:
+        list(pool.map(lambda h: _build.build("stencil3d", h), headers))
+    for spec in specs:
+        frames = _build.ptxas_frames(
+            _build.build_log("stencil3d", st3.tapset_header(spec)))
+        assert len(frames) == 2, (spec.name, frames)
+        for kernel, (regs, spill, stack) in frames.items():
+            assert spill == 0 and stack == 0, (spec.name, kernel, spill,
+                                               stack)
+            assert regs <= 128, (spec.name, kernel, regs)
+
+
+@pytest.mark.cuda
+def test_stencil3d_launch_shape_matches_the_planner(cuda_device):
+    """The C launcher's threads and shared memory, at the planner's cells
+    per thread, equal the Python helpers the planner and the CPU replay
+    read; it refuses what the planner finds no spread for."""
+    for spec, shape, t, zc, ty, tx in [
+            (tspec.get("j3d7pt"), (2560, 288, 384), 8, 427, 32, 32),
+            (tspec.get("j3d13pt"), (2560, 288, 384), 5, 233, 29, 32),
+            (tspec.get("j3d27pt"), (2560, 288, 384), 5, 214, 32, 64),
+            (tspec.lift_2d_to_3d(tspec.get("j2d5pt")), (8352, 1, 8352), 12,
+             597, None, 928),
+            (BOX_R2, (24, 40, 44), 2, 24, None, None),
+            (ASYM_R2, (19, 13, 21), 2, 5, 4, 8),
+            (ASYM_R8, (23, 17, 40), 2, 7, 3, 16),
+            (ASYM_R8, (16, 20, 70), 2, 16, None, 32)]:
+        for itemsize in (4, 8):
+            g = st3.launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
+                                       itemsize=itemsize)
+            if g["threads"] is None:
+                with pytest.raises(RuntimeError, match="refuses"):
+                    st3.launch_shape(spec, t, shape, g, itemsize)
+                continue
+            block, smem = st3.launch_shape(spec, t, shape, g, itemsize)
+            assert (block, smem) == (g["threads"], g["kernel_smem_bytes"])
+            assert smem <= g["smem_bytes"]
+
+
 @pytest.mark.cuda
 def test_kernel_3d_refuses_what_it_cannot_run(cuda_device):
     spec = tspec.get("j3d7pt")
@@ -155,6 +304,14 @@ def test_kernel_3d_refuses_what_it_cannot_run(cuda_device):
         big = torch.zeros((64, 256, 256), device=cuda_device)
         st3.ebisu3d_padded(big, spec, 16, zdim=64, ydim=256, xdim=256,
                            zc=64)           # far beyond shared memory
+    with pytest.raises(RuntimeError, match="launch failed"):
+        st3.ebisu3d_padded(xp, spec, 33, **kw)     # past the depth bound
+    with pytest.raises(RuntimeError, match="launch failed"):
+        # 92 x 92 cells of j3d13pt at t=1 fit shared memory, not the 512
+        # threads x 16 cells (64 registers of partial sums) of radius 2
+        wide = torch.zeros((8, 92, 92), device=cuda_device)
+        st3.ebisu3d_padded(wide, tspec.get("j3d13pt"), 1, zdim=8, ydim=92,
+                           xdim=92, zc=8)
 
 
 @pytest.mark.cuda
