@@ -5,11 +5,13 @@
     python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm train)
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source and per tap-set library of the 3-D template
-``stencil3d.cu``, for the five 3-D Table-2 stencils and the lifted
-j2d5pt, all started together; each library's seconds and ptxas's
-registers and spill stores, and for ``stencil3d`` its stack frame, are
-printed per kernel instantiation, and the 3-D phase prints each launch's
+(one ``nvcc`` per source and per tap-set library of the 2-D template
+``stencil2d.cu``, for the four 2-D Table-2 stencils, and of the 3-D
+template ``stencil3d.cu``, for the five 3-D ones and the lifted j2d5pt,
+all started together; each library's seconds and ptxas's registers and
+spill stores, and for the two templates their stack frames, are printed
+per kernel instantiation, a 2-D instantiation with a spill store or a
+stack frame fails the run, and the 3-D phase prints each launch's
 ``kernel_smem_bytes`` against the planner's ``smem_bytes_3d`` budget),
 then drives the port's paths through the entry points a user calls, each
 in its own counted run:
@@ -47,7 +49,7 @@ other kernels.
 Then, outside the counted runs: the stencil results against the port's
 plain oracle on the card (max |err| < 1e-4 in f32, < 1e-10 in f64), each
 stencil kernel against its plain version on the main path's own padded
-inputs (the 3-D kernel also against a second launch, bit for bit); the
+inputs and against a second launch, bit for bit; the
 whole LM path in f32 at full width and depth 2, kernel against the chunked
 attention path (last-token logits < 1e-4, greedy agreement printed); the
 whole training path in f32 at full width and depth 2, kernels against the
@@ -77,11 +79,15 @@ held to the same limit.  The ``[model]`` lines give what is counted, not
 measured, of the bf16 forward and backward kernels: their tiles, the
 flops they issue per kept pair, their shared memory and ptxas's
 registers and spill stores, and the forward's modelled flops over its
-measured ms; for each 3-D sweep, the cell-updates its trapezoid
-schedule computes over its measured ms.  The bound of a stencil sweep is
-the larger of its bytes (the domain read once, the padded layout written
-once) over 3.35 TB/s and ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32
-(34 fp64); of an attention call, the larger of q, k, v read and o written
+measured ms; for each 2-D sweep, its CTAs (interior ones apart), the
+rows a thread computes, the trapezoid's cell-updates and those computed,
+each step's lane use, the shared reads per cell-update, and the
+cell-updates over its measured ms; for each 3-D sweep, the cell-updates
+its trapezoid schedule computes over its measured ms.  The bound of a
+stencil sweep is the larger of its bytes (the domain read once, the
+padded layout written once) over 3.35 TB/s and
+``flops_per_cell·t·cells`` over 67 TFLOP/s fp32 (34 fp64); of an
+attention call, the larger of q, k, v read and o written
 once over 3.35 TB/s and ``4·hd`` flops per (query, key) pair the mask
 keeps over 989 TFLOP/s dense bf16 (H100 SXM datasheet peaks); of a
 backward call, q, k, v, o, do and lse read and dq, dk, dv written once,
@@ -196,16 +202,24 @@ def main() -> int:
           f"devices {torch.cuda.device_count()}", flush=True)
 
     # ---- build ----------------------------------------------------------
-    # one nvcc per source and per tap-set library of the 3-D kernel (the
-    # five 3-D Table-2 stencils and the lifted j2d5pt), all started together
+    # one nvcc per source and per tap-set library of the 2-D kernel (the
+    # four 2-D Table-2 stencils) and of the 3-D kernel (the five 3-D
+    # Table-2 stencils and the lifted j2d5pt), all started together
     from repro_torch.core.stencil_spec import TABLE3_DEPTHS, get, lift_2d_to_3d
+    from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels import stencil3d as st3
 
+    tapsets2d = {name: get(name) for name in TABLE3_DEPTHS
+                 if get(name).ndim == 2}
     tapsets = {name: get(name) for name in TABLE3_DEPTHS
                if get(name).ndim == 3}
     tapsets["j2d5pt (lifted)"] = lift_2d_to_3d(get("j2d5pt"))
+    templated = ([("stencil2d", name, st.tapset_header(spec))
+                  for name, spec in tapsets2d.items()]
+                 + [("stencil3d", name, st3.tapset_header(spec))
+                    for name, spec in tapsets.items()])
     jobs = [(name, None) for name in _build.SOURCES] + [
-        ("stencil3d", st3.tapset_header(spec)) for spec in tapsets.values()]
+        (lib, header) for lib, _, header in templated]
     seconds = {}
 
     def timed_build(job):
@@ -217,19 +231,25 @@ def main() -> int:
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(timed_build, jobs))
     print(f"[build] {time.perf_counter() - t0:.2f}s for {len(jobs)} "
-          f"libraries ({len(tapsets)} stencil3d tap sets)", flush=True)
+          f"libraries ({len(tapsets2d)} stencil2d and {len(tapsets)} "
+          "stencil3d tap sets)", flush=True)
     for name in _build.SOURCES:
         print(f"[build] {name} {seconds[(name, None)]:.2f}s kernels: "
               "[registers, spill-store bytes] "
               f"{json.dumps(_build.ptxas_usage(_build.build_log(name)))}",
               flush=True)
-    for name, spec in tapsets.items():
-        job = ("stencil3d", st3.tapset_header(spec))
-        print(f"[build] stencil3d {name}: {seconds[job]:.2f}s, "
+    for lib, name, header in templated:
+        job = (lib, header)
+        frames = _build.ptxas_frames(_build.build_log(*job))
+        print(f"[build] {lib} {name}: {seconds[job]:.2f}s, "
               f"{_build.library_path(*job).name}; kernels: [registers, "
               "spill-store bytes, stack-frame bytes] "
-              f"{json.dumps(_build.ptxas_frames(_build.build_log(*job)))}",
-              flush=True)
+              f"{json.dumps(frames)}", flush=True)
+        if lib == "stencil2d":
+            check(len(frames) == 2 and all(
+                spill == 0 and stack == 0 for _, spill, stack in
+                frames.values()), f"stencil2d {name}: spill stores or a "
+                "stack frame")
 
     phases = sys.argv[1:] or ["2d", "3d", "lm", "train"]
     check(set(phases) <= {"2d", "3d", "lm", "train"},
@@ -360,10 +380,16 @@ def two_d(dev) -> dict:
         xp[:x.shape[0], :x.shape[1]] = x
         got = st.ebisu2d_padded(xp, spec, t, height=x.shape[0],
                                 width=x.shape[1], bh=bh, bw=bw)
+        again = st.ebisu2d_padded(xp, spec, t, height=x.shape[0],
+                                  width=x.shape[1], bh=bh, bw=bw)
         want = st.ebisu2d_padded_plain(xp, spec, t, height=x.shape[0],
                                        width=x.shape[1])
         max_err = max(max_err, held(got, want, 1e-4,
                                     f"{name} kernel vs plain sweep"))
+        check(torch.equal(got, again), f"{name}: a second launch differs")
+        print(f"[check] {name} kernel: a second launch equal bit for bit",
+              flush=True)
+        del got, again, want
         c.update(xp=xp, geometry=g)
     held(y_per, ref.reference(x5, j5, 25, boundary=Boundary.periodic()),
          1e-4, "j2d5pt periodic run(25) vs oracle")
@@ -458,6 +484,8 @@ def two_d(dev) -> dict:
                    host_s_first_call=c["host_s"])
         rows.append(row)
         print("[timing] " + json.dumps(row), flush=True)
+        model_2d(name, st.tile_schedule(spec, t, bh, bw, height, width),
+                 kern_ms)
 
     entry_2d = kernel_entry("stencil2d", SOURCE, REPLACES, launches,
                             max_err, rows,
@@ -483,6 +511,27 @@ def kernel_entry(name, source, replaces, launches, max_err, rows,
                      * 2 >= len(rows) else "operations"),
         "library_ms": total["library_ms"], "times_are": times_are,
         "per_stencil": rows, **extra}
+
+
+def model_2d(name, sched, ms) -> None:
+    """The ``[model]`` line of a 2-D sweep: what its CTAs compute, counted
+    from the launch geometry (``stencil2d.tile_schedule``, not measured):
+    the trapezoid's cell-updates and those computed (the overlapping last
+    row block included), the rows a thread computes, each step's lane use
+    and the shared reads per cell-update; and the trapezoid's count over
+    the measured ms."""
+    steps = sched["steps"]
+    print(f"[model] stencil2d {name}: {sched['ctas']} CTAs "
+          f"({sched['interior_ctas']} interior), R = "
+          f"{sched['rows_per_thread']} rows a thread, "
+          f"{sched['cell_updates']} cell-updates (counted), "
+          f"{sched['computed_updates']} computed, "
+          f"{sched['shared_reads'] / sched['cell_updates']:.4g} shared "
+          "reads a cell-update, lane use by step "
+          f"{[round(st['lane_use'], 3) for st in steps]} (rows "
+          f"{[st['rows'] for st in steps]}), "
+          f"{sched['cell_updates'] / (ms * 1e-3):.4g} cell-updates a "
+          f"second at the measured {ms:.4g} ms", flush=True)
 
 
 def model_3d(name, threads, g, ms) -> None:

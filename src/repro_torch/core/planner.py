@@ -115,6 +115,18 @@ def fit_tile_2d(spec: StencilSpec, t: int, shape: tuple[int, int],
     return None
 
 
+# The 2-D kernel (csrc/stencil2d.cu and the header kernels/stencil2d_gen.py
+# writes) runs THREADS threads a CTA, at most two CTAs an SM.
+def rows_per_thread_2d(rad: int, itemsize: int) -> int:
+    """``R``: the vertically consecutive cells a thread of the 2-D kernel
+    computes at each step, with one accumulator each in registers.  A
+    step whose live region has fewer rows runs one row a thread.  Within
+    64 registers a thread: 8 rows, and 4 for float64 beyond radius 2 (at
+    8, ptxas spills float64 dense sets of radius 3–8: ``python -m
+    repro_torch.launch.stencil3d_registers --ndim 2``)."""
+    return 4 if itemsize == 8 and rad > 2 else 8
+
+
 def tile_valid_fraction(spec: StencilSpec, t: int, bh: int, bw: int) -> float:
     """Output cells over loaded cells of one CTA tile (Eq 8, both axes)."""
     h = spec.halo(t)

@@ -8,13 +8,14 @@ at first use, into ``kernels/_build/`` beside this file (listed in
 and the flags, so an edited source is rebuilt and a stale library is
 never loaded.
 
-A template source (``TEMPLATES``: the 3-D stencil kernel) includes a
-header generated per tap set (``kernels/stencil3d_gen.py``).  Its
-libraries are built from the template and a header's text: the header is
-written beside the library, and the hash covers the template, the header
-and the flags, so each tap set has its own library and a changed header
-never loads a stale one.  Different libraries build in parallel; one
-library is built once.
+A template source (``TEMPLATES``: the 2-D and the 3-D stencil kernels,
+``stencil2d.cu`` and ``stencil3d.cu``) includes a header generated per
+tap set (``kernels/stencil2d_gen.py``, ``kernels/stencil3d_gen.py``).
+Its libraries are built from the template and a header's text: the
+header is written beside the library, and the hash covers the template,
+the header and the flags, so each tap set has its own library and a
+changed header never loads a stale one.  Different libraries build in
+parallel; one library is built once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host may have no ``nvcc`` at all.
@@ -32,12 +33,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = {"stencil2d": "stencil2d.cu",
-           "flash_attention": "flash_attention.cu",
+SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_mma": "flash_attention_mma.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "flash_attention_bwd_mma": "flash_attention_bwd_mma.cu"}
-TEMPLATES = {"stencil3d": ("stencil3d.cu", "stencil3d_taps.cuh")}
+TEMPLATES = {"stencil2d": ("stencil2d.cu", "stencil2d_taps.cuh"),
+             "stencil3d": ("stencil3d.cu", "stencil3d_taps.cuh")}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,26 +15,36 @@ steps of the tap set, in the same layout, again zero outside the domain.
     every step.  No CUDA tensor ever takes the plain version.
 
 The kernel tiles both axes: a CTA computes a ``bh × bw`` tile of output
-cells from a ``t·rad`` rim on every side (see the source's header).  The
-padded layout rounds rows up to a multiple of ``bh`` and columns to a
-multiple of ``bw`` (which is itself a multiple of one warp, 32 columns);
-the reference's 128-column padding was a TPU lane artifact.
+cells from a ``t·rad`` rim on every side, its ``t`` steps ping-ponged
+between two shared buffers, each thread computing ``R`` vertically
+consecutive cells of a step in registers (:func:`tile_schedule`; see the
+source's header).  The source is a template: its taps come from a
+header generated per tap set (``kernels/stencil2d_gen.py``), one library
+per tap set, built at first use (``_build``).  What bounds it: the
+domain read and the padded layout written once against HBM's rate; above
+that, the tiles' overlap, the trapezoid's redundant cell-updates and the
+instructions around each FMA.  The padded layout rounds rows up to a
+multiple of ``bh`` and columns to a multiple of ``bw`` (which is itself a
+multiple of one warp, 32 columns); the reference's 128-column padding
+was a TPU lane artifact.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
 
-from repro_torch.core.planner import COL_ALIGN, THREADS, _pad_to
+from repro_torch.core.planner import (COL_ALIGN, THREADS, _pad_to,
+                                      axis_reach, rows_per_thread_2d)
 from repro_torch.core.stencil_spec import StencilSpec
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, stencil2d_gen
 from repro_torch.kernels.taps import engine_for, split_star
 
-MAX_TAPS = 128          # STENCIL2D_MAX_TAPS in csrc/stencil2d.cu
-MAX_RADIUS = 8          # STENCIL2D_MAX_RADIUS
+MAX_TAPS = 128          # the most taps a tap-set library is built for
+MAX_RADIUS = 8
 
 
 def strip_geometry(spec: StencilSpec, t: int, bh: int,
@@ -55,10 +65,63 @@ def padded_shape_2d(spec: StencilSpec, t: int, bh: int, bw: int,
     return _pad_to(height, bh), _pad_to(width, bw)
 
 
+def tile_schedule(spec: StencilSpec, t: int, bh: int, bw: int,
+                  height: int, width: int, itemsize: int = 4) -> dict:
+    """What a launch's CTAs compute, counted from its geometry (nothing
+    here is measured): per step ``s = 1..t`` the live region ``(ny,
+    nx)`` (the output tile widened by ``(t-s)·reach`` per axis), the rows
+    a thread computes (``rows``: ``R`` of :func:`rows_per_thread_2d`, or
+    1 where the region has fewer), the thread items (a block of rows in
+    one column), the passes of the CTA's threads over them and the share
+    of those passes' lanes that hold an item (``lane_use``), the
+    cell-updates computed (the last block of a column overlaps its
+    neighbour) and the shared reads (each column offset once per input
+    row some tap of that column needs for the block).  Sums over the
+    launch: ``cell_updates`` (the trapezoid's), ``computed_updates``,
+    ``shared_reads``; and the CTAs that run the kernel's interior
+    variant (``interior_ctas``: the loaded tile inside the domain)."""
+    bh, bw, halo = strip_geometry(spec, t, bh, bw)
+    hp, wp = padded_shape_2d(spec, t, bh, bw, height, width)
+    ry, rx = axis_reach(spec, 0), axis_reach(spec, 1)
+    r = rows_per_thread_2d(spec.radius, itemsize)
+    column_dys = [{dy for dy, _ in terms}
+                  for _, terms in stencil2d_gen.tap_columns(spec.taps)]
+    steps = []
+    for s in range(1, t + 1):
+        ny, nx = bh + 2 * (t - s) * ry, bw + 2 * (t - s) * rx
+        rows = r if ny >= r else 1
+        items = -(-ny // rows) * nx
+        passes = -(-items // THREADS)
+        steps.append(dict(s=s, ny=ny, nx=nx, rows=rows, items=items,
+                          passes=passes,
+                          lane_use=items / (passes * THREADS),
+                          computed=items * rows,
+                          reads=items * sum(
+                              len({dy + j for dy in dys for j in range(rows)})
+                              for dys in column_dys)))
+
+    def inside(n, tile, reach, dim):
+        return sum(1 for i in range(n)
+                   if i * tile - t * reach >= 0
+                   and (i + 1) * tile + t * reach <= dim)
+
+    grid = (hp // bh, wp // bw)
+    ctas = math.prod(grid)
+    return dict(grid=grid, rows_per_thread=r, steps=steps, ctas=ctas,
+                interior_ctas=(inside(grid[0], bh, ry, height)
+                               * inside(grid[1], bw, rx, width)),
+                cell_updates=ctas * sum(st["ny"] * st["nx"]
+                                        for st in steps),
+                computed_updates=ctas * sum(st["computed"] for st in steps),
+                shared_reads=ctas * sum(st["reads"] for st in steps))
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_taps(taps) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(dy, dx, coef)`` in the order the plain version sums them: for a
-    star set the center, then each axis's arms; otherwise tap order."""
+    star set the center, then each axis's arms; otherwise tap order.
+    The single source of the tap order: the header generator
+    (``stencil2d_gen.tap_columns``) reads it."""
     if len(taps) > MAX_TAPS:
         raise ValueError(f"the CUDA kernel takes at most {MAX_TAPS} taps; "
                          f"this stencil has {len(taps)}")
@@ -135,8 +198,34 @@ def ebisu2d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
 ebisu2d_padded.launches = 0
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [
-    ctypes.c_void_p] * 4
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p]
+
+
+def tapset_header(spec: StencilSpec) -> str:
+    """The generated header of ``spec``'s tap set (refuses what no
+    library is built for: more than ``MAX_TAPS`` taps, radius beyond
+    ``MAX_RADIUS``)."""
+    kernel_taps(spec.taps)
+    return stencil2d_gen.header(tuple(spec.taps))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_points(header: str):
+    """``({dtype: launcher}, error_string)`` of one tap set's library,
+    built at first use, their argument types set once."""
+    lib = _build.library("stencil2d", header)
+    fns = {}
+    for dtype, name in ((torch.float32, "stencil2d_f32"),
+                        (torch.float64, "stencil2d_f64")):
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[dtype] = fn
+    err = lib.stencil2d_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fns, err
 
 
 def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
@@ -149,21 +238,14 @@ def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
     if out.data_ptr() == xp.data_ptr():
         raise ValueError("out must not alias xp: CTAs read xp while others "
                          "write out")
-    dy, dx, coef = kernel_taps(spec.taps)
-    lib = _build.library("stencil2d")
-    fn = lib.stencil2d_f32 if xp.dtype == torch.float32 else lib.stencil2d_f64
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fns, error_string = _entry_points(tapset_header(spec))
     hp, wp = xp.shape
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), out.data_ptr(), hp, wp, height, width, t,
-                 bh, bw, THREADS, len(dy), dy.ctypes.data, dx.ctypes.data,
-                 coef.ctypes.data, stream)
+        err = fns[xp.dtype](xp.data_ptr(), out.data_ptr(), hp, wp, height,
+                            width, t, bh, bw, stream)
     if err != 0:
-        lib.stencil2d_error_string.restype = ctypes.c_char_p
-        lib.stencil2d_error_string.argtypes = [ctypes.c_int]
-        msg = lib.stencil2d_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(
             f"stencil2d launch failed ({msg}): {spec.name} t={t} tile "
             f"({bh}, {bw}) padded {(hp, wp)} {xp.dtype}")

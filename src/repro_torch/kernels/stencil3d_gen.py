@@ -10,10 +10,11 @@ and adds it, times each coefficient, into the partial sum of the output
 plane that tap's ``dz`` feeds; the CPU replay of the schedule
 (``tests/test_torch_stencil3d.py``) reads the same grouping.
 
-:func:`header` writes it as C preprocessor lists, the coefficients as
-exact hexadecimal literals of the float64 value (``float.hex``; the kernel
-casts each to its type as the plain version does), with the kernel's
-compile-time bounds from the planner.  Nothing here imports CUDA or
+:func:`header` writes it as C preprocessor lists (``kernels/tap_header.py``,
+shared with the 2-D header), the coefficients as exact hexadecimal
+literals of the float64 value (``float.hex``; the kernel casts each to
+its type as the plain version does), with the kernel's compile-time
+bounds from the planner.  Nothing here imports CUDA or
 builds anything.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import functools
 from repro_torch.core.planner import (KERNEL_THREADS_3D, MAX_DEPTH_3D,
                                       max_cells_per_thread,
                                       planes_per_barrier)
+from repro_torch.kernels.tap_header import group_macro, group_taps
 from repro_torch.kernels.taps import tap_radius
 
 TapGroups = tuple[tuple[int, int, tuple[tuple[int, float], ...]], ...]
@@ -34,11 +36,7 @@ def tap_groups(taps) -> TapGroups:
     from repro_torch.kernels.stencil3d import kernel_taps
 
     dz, dy, dx, coef = kernel_taps(tuple(taps))
-    groups: dict[tuple[int, int], list[tuple[int, float]]] = {}
-    for q in range(len(coef)):
-        groups.setdefault((int(dy[q]), int(dx[q])), []).append(
-            (int(dz[q]), float(coef[q])))
-    return tuple((y, x, tuple(terms)) for (y, x), terms in groups.items())
+    return group_taps((dz, dy, dx), coef, key_axes=(1, 2), term_axis=0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,10 +60,6 @@ def header(taps) -> str:
         f"#define ST3_MAX_DEPTH {MAX_DEPTH_3D}",
         "// OFFSET(dy, dx, terms) for each in-plane offset; terms are",
         "// TAP(dz, coefficient) in kernel_taps order.",
-        "#define ST3_OFFSETS(OFFSET, TAP) \\",
+        *group_macro("ST3_OFFSETS", "OFFSET", "TAP", groups),
     ]
-    for y, x, terms in groups:
-        body = " ".join(f"TAP({z}, {c.hex()})" for z, c in terms)
-        lines.append(f"  OFFSET({y}, {x}, {body}) \\")
-    lines.append("")
     return "\n".join(lines) + "\n"

@@ -1,23 +1,28 @@
-"""ptxas's report of the 3-D kernel's tap-set libraries across radii: the
-registers, spill-store bytes and stack-frame bytes of each instantiation
-(f32 and f64) for a star and a dense 128-tap set at every radius, at the
-planner's register budget or at the budgets given.
+"""ptxas's report of the stencil kernels' tap-set libraries across radii:
+the registers, spill-store bytes and stack-frame bytes of each
+instantiation (f32 and f64) for a star and a dense 128-tap set at every
+radius 1–8.
 
     python -m repro_torch.launch.stencil3d_registers
     python -m repro_torch.launch.stencil3d_registers --regs 64 56 48 40 32
+    python -m repro_torch.launch.stencil3d_registers --ndim 2 [--rows 8 16]
 
-``--regs`` sets the registers of z partial sums a thread may hold
+For the 3-D template (``csrc/stencil3d.cu``, the default) ``--regs``
+sets the registers of z partial sums a thread may hold
 (``planner.max_cells_per_thread`` is 64 up to radius 2 and 48 beyond);
 each line gives the tap set, its radius, the budget, the cells a thread
-in f32 and f64, the build's seconds, and ptxas's ``[registers, spill
-stores, stack frame]`` per instantiation.  It needs ``nvcc`` (it builds
-the libraries, in parallel, into ``kernels/_build/``) and launches
-nothing.  The card tests build the same tap sets at the planner's budget
-(``tests/test_torch_cuda.py``).
+in f32 and f64.  For the 2-D template (``csrc/stencil2d.cu``, ``--ndim
+2``) ``--rows`` sets the rows a thread computes (``R``,
+``planner.rows_per_thread_2d``).  Each line also gives the build's
+seconds and ptxas's ``[registers, spill stores, stack frame]`` per
+instantiation.  It needs ``nvcc`` (it builds the libraries, in parallel,
+into ``kernels/_build/``) and launches nothing.  The card tests build the
+same tap sets at the planner's bounds (``tests/test_torch_cuda.py``).
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import time
@@ -25,33 +30,40 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from repro_torch.core.planner import max_cells_per_thread
+from repro_torch.core.planner import max_cells_per_thread, rows_per_thread_2d
 from repro_torch.core.stencil_spec import (StencilSpec, define_stencil,
                                            star_taps)
-from repro_torch.kernels import _build, stencil3d_gen
+from repro_torch.kernels import _build, stencil2d_gen, stencil3d_gen
+
+_PREFIX = {2: "2d-", 3: ""}
 
 
-def dense_spec(radius: int, n: int = 128, seed: int = 0) -> StencilSpec:
-    """``n`` taps of the ``(2·radius+1)³`` cube: the centre and the six
-    axis ends, the rest drawn from a seeded permutation (so most
-    in-plane offsets of the radius are used, each with its own ``dz``)."""
+def dense_spec(radius: int, n: int = 128, seed: int = 0,
+               ndim: int = 3) -> StencilSpec:
+    """``n`` taps of the ``(2·radius+1)^ndim`` box (all of them where it
+    has fewer): the centre and the axis ends, the rest drawn from a
+    seeded permutation (in 3-D most in-plane offsets of the radius are
+    used, each with its own ``dz``; in 2-D most column offsets, each
+    with its own ``dy``)."""
     rng = np.random.default_rng(seed + radius)
     r = range(-radius, radius + 1)
-    ends = [(0, 0, 0)] + [tuple(s * radius * (a == b) for b in range(3))
-                          for a in range(3) for s in (1, -1)]
-    rest = [(z, y, x) for z in r for y in r for x in r
-            if (z, y, x) not in ends]
-    pick = ends + [rest[i] for i in rng.permutation(len(rest))[:n - 7]]
+    ends = [(0,) * ndim] + [tuple(s * radius * (a == b) for b in range(ndim))
+                            for a in range(ndim) for s in (1, -1)]
+    rest = [o for o in itertools.product(r, repeat=ndim) if o not in ends]
+    pick = ends + [rest[i] for i in
+                   rng.permutation(len(rest))[:n - len(ends)]]
     return define_stencil([(o, 1.0 + 0.01 * i) for i, o in enumerate(pick)],
-                          name=f"dense-r{radius}", normalize=True)
+                          name=f"dense-{_PREFIX[ndim]}r{radius}",
+                          normalize=True)
 
 
-def probe_specs(radii=range(1, 9)) -> list[StencilSpec]:
+def probe_specs(radii=range(1, 9), ndim: int = 3) -> list[StencilSpec]:
     """A star and a dense set (:func:`dense_spec`) at each radius."""
     return [spec for rad in radii
-            for spec in (define_stencil(star_taps(3, rad),
-                                        name=f"star-r{rad}", normalize=True),
-                         dense_spec(rad))]
+            for spec in (define_stencil(star_taps(ndim, rad),
+                                        name=f"star-{_PREFIX[ndim]}r{rad}",
+                                        normalize=True),
+                         dense_spec(rad, ndim=ndim))]
 
 
 def header_at(spec: StencilSpec, regs: int | None) -> tuple[str, int, int]:
@@ -67,34 +79,56 @@ def header_at(spec: StencilSpec, regs: int | None) -> tuple[str, int, int]:
     return text, k[0], k[1]
 
 
+def header_at_2d(spec: StencilSpec, rows: int | None) -> tuple[str, int,
+                                                                 int]:
+    """The 2-D tap set's header at ``rows`` rows a thread (the planner's
+    ``R`` if ``None``), with the rows in f32 and f64."""
+    text = stencil2d_gen.header(tuple(spec.taps))
+    r = [rows_per_thread_2d(spec.radius, size) if rows is None else rows
+         for size in (4, 8)]
+    for name, n in zip(("ST2_ROWS_F32", "ST2_ROWS_F64"), r):
+        text = re.sub(rf"#define {name} \d+", f"#define {name} {n}", text)
+    return text, r[0], r[1]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ndim", type=int, choices=(2, 3), default=3,
+                    help="the 3-D template (default) or the 2-D one")
     ap.add_argument("--regs", type=int, nargs="*", default=[None],
-                    help="registers of partial sums a thread (default: "
-                         "the planner's budget)")
+                    help="3-D: registers of partial sums a thread "
+                         "(default: the planner's budget)")
+    ap.add_argument("--rows", type=int, nargs="*", default=[None],
+                    help="2-D: rows a thread computes (default: the "
+                         "planner's R)")
     args = ap.parse_args(argv)
+    name = "stencil3d" if args.ndim == 3 else "stencil2d"
+    at = header_at if args.ndim == 3 else header_at_2d
+    knob = "regs" if args.ndim == 3 else "rows"
+    per = "k" if args.ndim == 3 else "rows"
     jobs, seen = [], set()
-    for spec in probe_specs():
-        for regs in args.regs:
-            text, k32, k64 = header_at(spec, regs)
+    for spec in probe_specs(ndim=args.ndim):
+        for value in getattr(args, knob):
+            text, n32, n64 = at(spec, value)
             if text not in seen:
                 seen.add(text)
-                jobs.append((spec, regs, k32, k64, text))
+                jobs.append((spec, value, n32, n64, text))
 
     def build(job):
         t0 = time.perf_counter()
-        _build.build("stencil3d", job[4])
+        _build.build(name, job[4])
         return time.perf_counter() - t0
 
     with ThreadPoolExecutor(len(jobs)) as pool:
         seconds = list(pool.map(build, jobs))
-    for (spec, regs, k32, k64, text), sec in zip(jobs, seconds):
-        frames = _build.ptxas_frames(_build.build_log("stencil3d", text))
+    for (spec, value, n32, n64, text), sec in zip(jobs, seconds):
+        frames = _build.ptxas_frames(_build.build_log(name, text))
         by_type = {("f64" if "kernelId" in kernel else "f32"): v
                    for kernel, v in frames.items()}
-        print(json.dumps(dict(spec=spec.name, radius=spec.radius,
-                              taps=len(spec.taps), regs=regs, k_f32=k32,
-                              k_f64=k64, seconds=round(sec, 2), **by_type)),
+        print(json.dumps({"spec": spec.name, "radius": spec.radius,
+                          "taps": len(spec.taps), knob: value,
+                          f"{per}_f32": n32, f"{per}_f64": n64,
+                          "seconds": round(sec, 2), **by_type}),
               flush=True)
 
 

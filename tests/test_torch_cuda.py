@@ -5,7 +5,7 @@ no JAX, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain version on the same padded input
-(the 3-D one also against a second launch, bit for bit), and whole
+(the stencil kernels also against a second launch, bit for bit), and whole
 programs against the port's oracle.  Tolerances: 2e-5 for f32
 (the reference suite's), 1e-12 for f64 (rounding of a different
 summation grouping only).
@@ -45,19 +45,122 @@ def field(shape, seed=0):
                                            ((200, 300), 4, 40, 64),
                                            ((33, 70), 4, 3, 32)])
 def test_kernel_matches_plain(cuda_device, name, dtype, shape, t, bh, bw):
-    spec = tspec.get(name)
+    kernel_vs_plain_2d(tspec.get(name), dtype, shape, t, bh, bw,
+                       cuda_device)
+
+
+def kernel_vs_plain_2d(spec, dtype, shape, t, bh, bw, device, dirty=False):
+    """Two launches of the 2-D kernel on one padded input, equal bit for
+    bit, and held to the plain version; ``dirty`` fills the padding with
+    values the sweep must read as 0."""
     hp, wp = st.padded_shape_2d(spec, t, bh, bw, *shape)
-    xp = torch.zeros((hp, wp), dtype=dtype, device=cuda_device)
-    xp[:shape[0], :shape[1]] = field(shape).to(cuda_device)
+    xp = torch.zeros((hp, wp), dtype=dtype, device=device)
+    xp[:shape[0], :shape[1]] = field(shape).to(device)
+    if dirty:
+        xp[shape[0]:] = 7.0
+        xp[:, shape[1]:] = -3.0
+    kw = dict(height=shape[0], width=shape[1], bh=bh, bw=bw)
     before = st.ebisu2d_padded.launches
-    got = st.ebisu2d_padded(xp, spec, t, height=shape[0], width=shape[1],
-                            bh=bh, bw=bw)
+    got = st.ebisu2d_padded(xp, spec, t, **kw)
+    again = st.ebisu2d_padded(xp, spec, t, **kw)
     torch.cuda.synchronize()
-    assert st.ebisu2d_padded.launches == before + 1
+    assert st.ebisu2d_padded.launches == before + 2
+    assert torch.equal(got, again)          # a missing barrier would race
     want = st.ebisu2d_padded_plain(xp, spec, t, height=shape[0],
                                    width=shape[1])
     tol = 2e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert not got[shape[0]:].any() and not got[:, shape[1]:].any()
+
+
+# 2-D custom tap sets: asymmetric at radius 4, 128 taps at radius 8 (the
+# kernel's bounds), and sets with no reach along one axis
+# (tests/test_torch_stencil2d.py replays them on the CPU)
+ASYM_R4_2D = tspec.define_stencil(
+    [((0, 0), 0.3), ((-4, 1), 0.05), ((3, -2), 0.07), ((1, 4), 0.06),
+     ((-2, -3), 0.08), ((0, 2), 0.1), ((2, 0), 0.09), ((-1, -1), 0.11)],
+    name="asym-r4", normalize=True)
+CUSTOM_2D = {s.name: s for s in (
+    ASYM_R4_2D, dense_spec(8, ndim=2),
+    tspec.define_stencil([((0, 0), 0.5), ((0, 2), 0.25), ((0, -1), 0.25)],
+                         name="x-only"),
+    tspec.define_stencil([((0, 0), 0.5), ((3, 0), 0.25), ((-1, 0), 0.25)],
+                         name="y-only"))}
+# (shape, t, bh, bw, interior share): most CTAs interior (the variant
+# without domain tests), every CTA an edge one, and (share None) regions
+# whose rows R does not divide at any step (13 + 2·(t-s)·reach rows)
+EDGE_TILINGS_2D = [((300, 400), 2, 16, 32, 0.5),
+                   ((37, 53), 2, 16, 32, 0.0),
+                   ((261, 197), 3, 13, 64, None)]
+
+
+def spec_2d(name):
+    return CUSTOM_2D.get(name) or tspec.get(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_2D + ["asym-r4", "dense-2d-r8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,t,bh,bw,share", EDGE_TILINGS_2D)
+def test_kernel_2d_interior_and_edge_ctas_match_plain(
+        cuda_device, name, dtype, shape, t, bh, bw, share):
+    spec = spec_2d(name)
+    sched = st.tile_schedule(spec, t, bh, bw, *shape,
+                             torch.tensor([], dtype=dtype).element_size())
+    interior = sched["interior_ctas"]
+    if share is None:
+        assert all(s["ny"] % s["rows"] for s in sched["steps"])
+    else:
+        assert (interior > share * sched["ctas"] if share
+                else interior == 0)
+    kernel_vs_plain_2d(spec, dtype, shape, t, bh, bw, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CUSTOM_2D))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,t,bh,bw", [((37, 53), 1, 16, 32),
+                                           ((50, 70), 2, 5, 32)])
+def test_kernel_2d_custom_taps_match_plain(cuda_device, name, dtype, shape,
+                                           t, bh, bw):
+    kernel_vs_plain_2d(CUSTOM_2D[name], dtype, shape, t, bh, bw, cuda_device,
+                       dirty=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SPECS_2D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_2d_dirty_padding(cuda_device, name, dtype):
+    """Garbage in the padding never leaks into the domain, and the
+    padding comes back zero, in interior and edge CTAs alike."""
+    kernel_vs_plain_2d(tspec.get(name), dtype, (95, 140), 2, 16, 32,
+                       cuda_device, dirty=True)
+
+
+@pytest.mark.cuda
+def test_stencil2d_build_has_no_spills(cuda_device):
+    """ptxas's report of every 2-D tap-set library the card tests build,
+    and of a star and a dense 128-tap set at each radius 1..8 (built in
+    parallel): no instantiation (f32 and f64) stores a spill or keeps a
+    stack frame, and each fits 64 registers (two CTAs of 512 threads on
+    an SM)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    specs = ([tspec.get(n) for n in SPECS_2D] + list(CUSTOM_2D.values())
+             + probe_specs(ndim=2))
+    headers = list(dict.fromkeys(st.tapset_header(s) for s in specs))
+    with ThreadPoolExecutor(len(headers)) as pool:
+        list(pool.map(lambda h: _build.build("stencil2d", h), headers))
+    for spec in specs:
+        frames = _build.ptxas_frames(
+            _build.build_log("stencil2d", st.tapset_header(spec)))
+        assert len(frames) == 2, (spec.name, frames)
+        for kernel, (regs, spill, stack) in frames.items():
+            assert spill == 0 and stack == 0, (spec.name, kernel, spill,
+                                               stack)
+            assert regs <= 64, (spec.name, kernel, regs)
 
 
 @pytest.mark.cuda

@@ -188,6 +188,8 @@ def test_import_gate():
         import repro_torch.kernels.flash_attention, repro_torch.core.roofline
         import repro_torch.core.online_softmax
         import repro_torch.kernels.stencil3d_gen
+        import repro_torch.kernels.stencil2d_gen
+        import repro_torch.kernels.tap_header
         import repro_torch.models.params, repro_torch.models.layers
         import repro_torch.models.attention, repro_torch.models.transformer
         import repro_torch.serve.serve_step, repro_torch.launch.serve

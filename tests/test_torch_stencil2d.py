@@ -1,18 +1,31 @@
 """The 2-D sweep of the port (``repro_torch.kernels.stencil2d``): its plain
 version against the reference's Pallas strip kernel (interpret mode), the
-launch geometry, and the CUDA kernel's tile schedule.
+launch geometry, the tap-set header generator, and the CUDA kernel's tile
+schedule.
 
-The CUDA kernel itself runs only on a card (tests marked ``cuda``, which
-skip elsewhere).  On the CPU its schedule is held by
-:func:`emulate_tiles`, which replays what every CTA does — load a
-``(bh + 2·halo) × (bw + 2·halo)`` window zero outside the domain, take
-``t`` valid-mode steps that narrow one radius per side, mask to the
-domain after each, write the inner ``bh × bw`` — so the tiling argument
-(halo wider than the tile, ragged edges, trapezoid on both axes) is
-tested here even though the CUDA source is not.
+The CUDA kernel itself runs only on a card (tests marked ``cuda`` in
+``tests/test_torch_cuda.py``).  On the CPU its schedule is held by
+:func:`emulate_tiles`, which replays what every CTA does: load the tile
+around its ``bh × bw`` output (zero outside the domain in an edge CTA,
+no test at all in an interior one), then per step cut the live region
+into blocks of ``R`` rows by column (the last block of a column
+overlapping its neighbour; one row a thread where the region has fewer
+than ``R`` rows), and for each block walk its input rows once, read each
+column offset of a row once and add it into every accumulator its taps
+reach, in the kernel's order (rows ascending, within a row the
+generator's column order, within a column ``kernel_taps`` order), then
+mask an edge CTA's cells to the domain and store them to the other
+buffer, or at the last step to the output.  Each CTA's two buffers start
+as NaN, and every cell carries a tag, the step that last wrote it: a
+read of a cell the step below did not write (never written, or left from
+an earlier step) fails.
 
-Tolerance 2e-5 (f32), the reference suite's own.
+Tolerances: 1e-6 between the replay and the plain version (the same
+taps, summed in another order), 2e-5 against the reference (its suite's
+own).
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,12 +34,26 @@ import torch
 from repro.core import stencil_spec as ref_spec
 from repro.kernels import ref as jref
 from repro.kernels import stencil2d as jst
+from repro_torch.core import planner as tplanner
+from repro_torch.core import roofline as trl
 from repro_torch.core import stencil_spec as tspec
+from repro_torch.kernels import _build
 from repro_torch.kernels import stencil2d as st
-from repro_torch.kernels.taps import engine_for
+from repro_torch.kernels import stencil2d_gen as gen
+from repro_torch.launch import stencil3d_registers as regs
 
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
 TOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny tensors: torch's default intra-op threads only oversubscribe
+    the CPU the other test workers share."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def field(shape, seed=0):
@@ -39,30 +66,88 @@ def padded(x: np.ndarray, hp: int, wp: int) -> torch.Tensor:
     return xp
 
 
+def fma(c: float, v: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``c·v + acc`` rounded once to float32, as the kernel's FMA (the
+    coefficient first cast to float32)."""
+    c32 = float(np.float32(c))
+    return (c32 * v.double() + acc.double()).float()
+
+
 def emulate_tiles(xp, spec, t, height, width, bh, bw):
-    """The CUDA kernel's per-CTA schedule, replayed tile by tile."""
+    """The CUDA kernel's schedule, replayed CTA by CTA (see the module
+    docstring); returns the output and the launch's schedule, whose
+    counts the replay checks."""
     bh, bw, halo = st.strip_geometry(spec, t, bh, bw)
-    rad = spec.radius
+    sched = st.tile_schedule(spec, t, bh, bw, height, width)
+    ry, rx = tplanner.axis_reach(spec, 0), tplanner.axis_reach(spec, 1)
+    columns = gen.tap_columns(spec.taps)
     hp, wp = xp.shape
-    eng = engine_for(spec.taps, 2)
-    out = torch.empty_like(xp)
-    for r0 in range(0, hp, bh):
-        for c0 in range(0, wp, bw):
-            rows = torch.arange(r0 - halo, r0 + bh + halo)
-            cols = torch.arange(c0 - halo, c0 + bw + halo)
-            rin = (rows >= 0) & (rows < height)
-            cin = (cols >= 0) & (cols < width)
-            win = torch.zeros((len(rows), len(cols)), dtype=xp.dtype)
+    sh, sw = bh + 2 * halo, bw + 2 * halo
+    out = torch.full_like(xp, float("nan"))
+    interior_ctas = updates = computed = reads = 0
+
+    def inside(rows, cols):
+        return (((rows >= 0) & (rows < height))[:, None]
+                & ((cols >= 0) & (cols < width))[None, :])
+
+    for cy in range(hp // bh):
+        for cx in range(wp // bw):
+            r0, c0 = cy * bh - halo, cx * bw - halo
+            ly, lx = halo - t * ry, halo - t * rx
+            rows = torch.arange(r0 + ly, r0 + ly + bh + 2 * t * ry)
+            cols = torch.arange(c0 + lx, c0 + lx + bw + 2 * t * rx)
+            ok = inside(rows, cols)
+            interior = bool(ok.all())
+            interior_ctas += interior
+            bufs = [torch.full((sh, sw), float("nan")) for _ in range(2)]
+            tags = [torch.full((sh, sw), -1) for _ in range(2)]
             sub = xp[rows.clamp(0, hp - 1)][:, cols.clamp(0, wp - 1)]
-            win = torch.where(rin[:, None] & cin[None, :], sub, win)
-            for s in range(1, t + 1):
-                win = eng.step(win, crops=(rad, rad))
-                lo = s * rad
-                m = (rin[lo:len(rows) - lo, None]
-                     & cin[None, lo:len(cols) - lo])
-                win = win * m
-            out[r0:r0 + bh, c0:c0 + bw] = win
-    return out
+            region = (slice(ly, ly + len(rows)), slice(lx, lx + len(cols)))
+            bufs[0][region] = sub if interior else torch.where(
+                ok, sub, torch.zeros(()))
+            tags[0][region] = 0
+            src = 0
+            for step in sched["steps"]:
+                s, ny, nx, r = (step[k] for k in ("s", "ny", "nx", "rows"))
+                ly, lx = halo - (t - s) * ry, halo - (t - s) * rx
+                nb = -(-ny // r)
+                starts = ly + torch.clamp(torch.arange(nb) * r, max=ny - r)
+                cc = lx + torch.arange(nx)
+                acc = [torch.zeros((nb, nx)) for _ in range(r)]
+                for i in range(r + 2 * ry):
+                    rr = (starts - ry + i)[:, None]
+                    for dx, terms in columns:
+                        used = [(i - ry - dy, c) for dy, c in terms
+                                if 0 <= i - ry - dy < r]
+                        if not used:
+                            continue
+                        at = (rr, (cc + dx)[None, :])
+                        assert (tags[src][at] == s - 1).all(), (s, i, dx)
+                        v = bufs[src][at]
+                        reads += v.numel()
+                        for j, c in used:
+                            acc[j] = fma(c, v, acc[j])
+                dst = 1 - src
+                for j in range(r):
+                    rj = starts + j
+                    o = acc[j]
+                    if not interior:
+                        o = torch.where(inside(r0 + rj, c0 + cc), o,
+                                        torch.zeros(()))
+                    if s < t:
+                        bufs[dst][rj[:, None], cc[None, :]] = o
+                        tags[dst][rj[:, None], cc[None, :]] = s
+                    else:
+                        out[(r0 + rj)[:, None], (c0 + cc)[None, :]] = o
+                updates += ny * nx
+                computed += nb * r * nx
+                src = dst
+    assert not out.isnan().any()            # every cell of the layout
+    assert interior_ctas == sched["interior_ctas"]
+    assert (updates, computed, reads) == (
+        sched["cell_updates"], sched["computed_updates"],
+        sched["shared_reads"])
+    return out, sched
 
 
 def jax_sweep(x: np.ndarray, name: str, t: int) -> np.ndarray:
@@ -100,19 +185,26 @@ def test_ebisu2d_matches_pallas_ebisu2d(name):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
 
 
+# (shape, t, bh, bw): ragged height and width, t = 1, a halo wider than
+# the tile (the last steps run one row a thread), bw rounded up to one
+# warp, interior CTAs beside a rim whose loaded tile crosses the domain's
+# edge by less than the halo, and row blocks R does not divide
+TILINGS = [((37, 53), 2, 16, 32),
+           ((40, 64), 1, 8, 32),
+           ((33, 70), 4, 3, 32),
+           ((29, 31), 3, 3, 1),
+           ((95, 140), 2, 16, 32),
+           ((61, 97), 3, 13, 64)]
+
+
 @pytest.mark.parametrize("name", SPECS_2D)
-@pytest.mark.parametrize("shape,t,bh,bw", [
-    ((37, 53), 2, 16, 32),     # height and width not tile multiples
-    ((40, 64), 1, 8, 32),      # t = 1
-    ((33, 70), 4, 3, 32),      # halo (4·rad) > bh = 3
-    ((29, 31), 3, 3, 1),       # bw rounds up to one warp (32)
-])
+@pytest.mark.parametrize("shape,t,bh,bw", TILINGS)
 def test_tile_schedule_matches_oracle(name, shape, t, bh, bw):
     spec = tspec.get(name)
     x = field(shape, seed=t)
     hp, wp = st.padded_shape_2d(spec, t, bh, bw, *shape)
     xp = padded(x, hp, wp)
-    tiles = emulate_tiles(xp, spec, t, shape[0], shape[1], bh, bw)
+    tiles, _ = emulate_tiles(xp, spec, t, shape[0], shape[1], bh, bw)
     plain = st.ebisu2d_padded_plain(xp, spec, t, height=shape[0],
                                     width=shape[1])
     torch.testing.assert_close(tiles, plain, atol=1e-6, rtol=0)
@@ -121,6 +213,73 @@ def test_tile_schedule_matches_oracle(name, shape, t, bh, bw):
     np.testing.assert_allclose(tiles[:shape[0], :shape[1]].numpy(), want,
                                atol=TOL, rtol=TOL)
     assert not tiles[shape[0]:].any() and not tiles[:, shape[1]:].any()
+
+
+# custom tap sets: asymmetric at radius 4, a 128-tap set at radius 8 (the
+# kernel's bounds), and sets with no reach along one axis
+ASYM_R4 = tspec.define_stencil(
+    [((0, 0), 0.3), ((-4, 1), 0.05), ((3, -2), 0.07), ((1, 4), 0.06),
+     ((-2, -3), 0.08), ((0, 2), 0.1), ((2, 0), 0.09), ((-1, -1), 0.11)],
+    name="asym-r4", normalize=True)
+ROWS_ONLY = tspec.define_stencil([((0, 0), 0.5), ((0, 2), 0.25),
+                                  ((0, -1), 0.25)], name="x-only")
+COLUMNS_ONLY = tspec.define_stencil([((0, 0), 0.5), ((3, 0), 0.25),
+                                     ((-1, 0), 0.25)], name="y-only")
+CUSTOM = {s.name: s for s in (ASYM_R4, regs.dense_spec(8, ndim=2),
+                              ROWS_ONLY, COLUMNS_ONLY)}
+
+
+@pytest.mark.parametrize("name", list(CUSTOM))
+@pytest.mark.parametrize("shape,t,bh,bw", [((37, 53), 1, 16, 32),
+                                           ((50, 70), 2, 5, 32)])
+def test_tile_schedule_custom_taps(name, shape, t, bh, bw):
+    spec = CUSTOM[name]
+    x = field(shape, seed=7)
+    hp, wp = st.padded_shape_2d(spec, t, bh, bw, *shape)
+    xp = padded(x, hp, wp)
+    xp[shape[0]:] = 7.0                   # dirty padding reads as 0
+    xp[:, shape[1]:] = -3.0
+    tiles, _ = emulate_tiles(xp, spec, t, shape[0], shape[1], bh, bw)
+    plain = st.ebisu2d_padded_plain(xp, spec, t, height=shape[0],
+                                    width=shape[1])
+    torch.testing.assert_close(tiles, plain, atol=1e-6, rtol=0)
+    rspec = ref_spec.define_stencil(spec.taps, name=spec.name)
+    want = np.asarray(jref.reference_unrolled(jnp.asarray(x), rspec, t))
+    np.testing.assert_allclose(tiles[:shape[0], :shape[1]].numpy(), want,
+                               atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name,t,itemsize,updates", [
+    ("j2d5pt", 12, 4, 1.04e9), ("j2d9pt", 8, 4, 7.07e8),
+    ("j2d9pt-gol", 6, 4, 5.16e8), ("j2d25pt", 4, 4, 3.39e8),
+    ("j2d5pt", 12, 8, None)])
+def test_tile_schedule_at_the_paper_plans(name, t, itemsize, updates):
+    """The counts ``chip_smoke.py``'s ``[model]`` lines print, at the
+    planner's tile of each Table-2 stencil at its EBISU depth: the
+    trapezoid's cell-updates (1.25×, 1.36×, 1.10× and 1.12× the outputs
+    in f32), the interior CTAs (j2d5pt in f32: all but the 344 of the
+    rim), and the shared reads per cell-update at ``R`` rows a thread."""
+    spec = tspec.get(name)
+    bh, bw, _ = tplanner.fit_tile_2d(spec, t, spec.domain, trl.H100,
+                                     itemsize)
+    sched = st.tile_schedule(spec, t, bh, bw, *spec.domain, itemsize)
+    r = sched["rows_per_thread"]
+    assert r == tplanner.rows_per_thread_2d(spec.radius, itemsize) == 8
+    rad = spec.radius
+    assert sched["cell_updates"] == sched["ctas"] * sum(
+        (bh + 2 * k * rad) * (bw + 2 * k * rad) for k in range(t))
+    if updates is not None:
+        assert float(f"{sched['cell_updates']:.3g}") == updates
+    if (name, itemsize) == ("j2d5pt", 4):
+        assert (sched["ctas"], sched["interior_ctas"]) == (7569, 7569 - 344)
+    assert sched["interior_ctas"] > 0.9 * sched["ctas"]
+    spans = [max(y for y, _ in terms) - min(y for y, _ in terms)
+             for _, terms in gen.tap_columns(spec.taps)]
+    full = sum(r + sp for sp in spans) / r     # reads a cell-update at R
+    assert (full <= sched["shared_reads"] / sched["cell_updates"]
+            <= full * sched["computed_updates"] / sched["cell_updates"])
+    assert all(0 < s["lane_use"] <= 1 and s["rows"] == r
+               for s in sched["steps"])
 
 
 def test_geometry():
@@ -176,3 +335,80 @@ def test_kernel_taps_order_and_limits():
     assert [(int(a), int(b)) for a, b in zip(dy, dx)] == [o for o, _ in box]
     with pytest.raises(ValueError, match="at most"):
         st.kernel_taps(tspec.box_taps(2, 6))               # 169 taps
+
+
+# ------------------------------------------------ the tap-set header ----
+def header_taps(text):
+    """``[(dy, dx, coef)]`` of a generated header, in its order."""
+    out = []
+    for dx, body in re.findall(r"COLUMN\((-?\d+), (.*)\) \\", text):
+        for dy, lit in re.findall(r"TAP\((-?\d+), ([-+0-9a-fA-Fxp.]+)\)",
+                                  body):
+            out.append((int(dy), int(dx), float.fromhex(lit)))
+    return out
+
+
+def define(text, name):
+    return int(re.search(rf"#define {name} (\d+)", text).group(1))
+
+
+@pytest.mark.parametrize("spec", [tspec.get(n) for n in SPECS_2D]
+                         + list(CUSTOM.values())
+                         + regs.probe_specs(ndim=2),
+                         ids=lambda s: s.name)
+def test_header_holds_kernel_taps_bit_exact(spec):
+    text = gen.header(spec.taps)
+    got = header_taps(text)
+    dy, dx, c = st.kernel_taps(spec.taps)
+    want = list(zip(map(int, dy), map(int, dx), map(float, c)))
+    assert sorted(got) == sorted(want)          # bit-exact coefficients
+    # within each column, the terms keep kernel_taps order
+    for col in {q[1] for q in want}:
+        assert ([q for q in got if q[1] == col]
+                == [q for q in want if q[1] == col])
+    assert [x for x, _ in gen.tap_columns(spec.taps)] == list(
+        dict.fromkeys(q[1] for q in want))
+    assert define(text, "ST2_RADIUS") == spec.radius
+    assert define(text, "ST2_NTAPS") == len(want)
+    assert define(text, "ST2_REACH_Y") == tplanner.axis_reach(spec, 0)
+    assert define(text, "ST2_REACH_X") == tplanner.axis_reach(spec, 1)
+    assert define(text, "ST2_ROWS_F32") == tplanner.rows_per_thread_2d(
+        spec.radius, 4)
+    assert define(text, "ST2_ROWS_F64") == tplanner.rows_per_thread_2d(
+        spec.radius, 8)
+    assert define(text, "ST2_THREADS") == tplanner.THREADS
+
+
+def test_tapset_library_path_keys_on_the_tap_set():
+    j5 = tspec.get("j2d5pt")
+    path = _build.library_path("stencil2d", st.tapset_header(j5))
+    same = tspec.define_stencil(j5.taps, name="another-name")
+    assert _build.library_path("stencil2d", st.tapset_header(same)) == path
+    bumped = [(off, c * (1 + 2 ** -40)) for off, c in j5.taps]
+    assert _build.library_path("stencil2d",
+                               gen.header(tuple(bumped))) != path
+    paths = {_build.library_path("stencil2d", st.tapset_header(s))
+             for s in [tspec.get(n) for n in SPECS_2D] + list(CUSTOM.values())}
+    assert len(paths) == len(SPECS_2D) + len(CUSTOM)
+    assert path.name.startswith("libstencil2d-")
+    with pytest.raises(ValueError, match="template"):
+        _build.library_path("stencil2d")
+    with pytest.raises(ValueError, match="at most"):
+        st.tapset_header(tspec.define_stencil(tspec.box_taps(2, 6)))
+
+
+def test_register_probe_tap_sets_2d():
+    """The 2-D tap sets the register probe and the card tests build: a
+    star and a dense set at each radius 1–8, within the kernel's tap
+    limit, and headers at the planner's ``R`` or another."""
+    specs = regs.probe_specs(ndim=2)
+    assert [s.radius for s in specs] == [r for r in range(1, 9)
+                                         for _ in (0, 1)]
+    assert all(s.ndim == 2 and len(s.taps) <= st.MAX_TAPS for s in specs)
+    dense = regs.dense_spec(8, ndim=2)
+    assert len(dense.taps) == 128 and dense.radius == 8
+    assert len(regs.dense_spec(2, ndim=2).taps) == 25      # the whole box
+    text, r32, r64 = regs.header_at_2d(dense, None)
+    assert text == gen.header(dense.taps) and (r32, r64) == (8, 4)
+    text, r32, r64 = regs.header_at_2d(dense, 16)
+    assert define(text, "ST2_ROWS_F32") == define(text, "ST2_ROWS_F64") == 16

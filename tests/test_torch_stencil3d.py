@@ -404,7 +404,7 @@ def test_tapset_library_path_keys_on_header_and_flags(monkeypatch):
     with pytest.raises(ValueError, match="template"):
         _build.library_path("stencil3d")
     with pytest.raises(ValueError, match="template"):
-        _build.library_path("stencil2d", "// a header")
+        _build.library_path("flash_attention", "// a header")
 
 
 @pytest.mark.parametrize("spec", [ASYM_R2, BOX_R2], ids=lambda s: s.name)
