@@ -2,16 +2,18 @@
 """Smoke test and measurement of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py lm         # one phase alone (any of 2d 3d lm train)
+    python3 chip_smoke.py lm   # one phase alone: 2d 3d systems lm train
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
-``stencil2d.cu``, for the four 2-D Table-2 stencils, and of the 3-D
-template ``stencil3d.cu``, for the five 3-D ones and the lifted j2d5pt,
-all started together; each library's seconds and ptxas's registers and
-spill stores, and for the two templates their stack frames, are printed
-per kernel instantiation, a 2-D instantiation with a spill store or a
-stack frame fails the run, and the 3-D phase prints each launch's
+``stencil2d.cu``, for the four 2-D Table-2 stencils and the 169- and
+289-tap sets ``box(2, radius=6)`` and ``blur(2, radius=8)``, and of the
+3-D template ``stencil3d.cu``, for the five 3-D ones, the lifted j2d5pt
+and the 343-tap ``box(3, radius=3)``, all started together; each
+library's seconds and ptxas's registers and spill stores, and for the
+two templates their stack frames, are printed per kernel instantiation,
+a 2-D or large-set instantiation with a spill store or a stack frame
+fails the run, and the 3-D phase prints each launch's
 ``kernel_smem_bytes`` against the planner's ``smem_bytes_3d`` budget),
 then drives the port's paths through the entry points a user calls, each
 in its own counted run:
@@ -19,11 +21,19 @@ in its own counted run:
 * 2-D (``stencil2d``): ``compile_stencil(...).apply`` and ``.run`` for the
   four 2-D Table-2 stencils at their Table-2 domains (8352², 8064², 8784²,
   8640²), f32, at the EBISU depth of Table 3 (t = 12, 8, 6, 4), plus one
-  periodic and one f64 program of j2d5pt;
+  periodic and one f64 program of j2d5pt; ``run_batched`` of four j2d5pt
+  fields at 8352² (one launch a sweep for the batch), ``run_padded`` of
+  j2d5pt, and ``.run`` of the 169- and 289-tap sets at 4096²;
 * 3-D (``stencil3d``): the five 3-D Table-2 stencils at the paper's
   2560×288×384, f32, at t = 8, 5, 6, 5, 6, plus one periodic and one f64
-  program of j3d7pt, and one ``mode="stream"`` apply of j2d5pt at 8352²
-  (the 2-D field streamed through the 3-D kernel as 8352×1×8352);
+  program of j3d7pt, one ``mode="stream"`` apply of j2d5pt at 8352²
+  (the 2-D field streamed through the 3-D kernel as 8352×1×8352),
+  ``run_batched`` of two j3d7pt fields at 2560×288×384 and ``.run`` of
+  the 343-tap set at 512×288×384;
+* systems (no kernel): the three coupled systems of
+  ``repro_torch.systems`` at 512², periodic and Neumann, on the card
+  against the same programs on the CPU in float64, then timed at 4096²
+  in f32 (plain torch);
 * LM serving (``flash_attention``): ``launch.serve.run`` serves
   h2o-danube-1.8b at its published widths (24 layers, d_model 2560, 32
   heads, 8 kv heads, hd 80, window 4096; weights random from a seed, bf16)
@@ -49,7 +59,10 @@ other kernels.
 Then, outside the counted runs: the stencil results against the port's
 plain oracle on the card (max |err| < 1e-4 in f32, < 1e-10 in f64), each
 stencil kernel against its plain version on the main path's own padded
-inputs and against a second launch, bit for bit; the
+inputs and against a second launch, bit for bit (the large tap sets
+too); ``run_batched`` against a loop of ``.run`` and ``run_padded``
+against ``.run``, bit for bit, with the batched and looped times side
+by side; the
 whole LM path in f32 at full width and depth 2, kernel against the chunked
 attention path (last-token logits < 1e-4, greedy agreement printed); the
 whole training path in f32 at full width and depth 2, kernels against the
@@ -214,6 +227,8 @@ def main() -> int:
     tapsets = {name: get(name) for name in TABLE3_DEPTHS
                if get(name).ndim == 3}
     tapsets["j2d5pt (lifted)"] = lift_2d_to_3d(get("j2d5pt"))
+    for name, spec in large_tap_sets().items():
+        (tapsets2d if spec.ndim == 2 else tapsets)[name] = spec
     templated = ([("stencil2d", name, st.tapset_header(spec))
                   for name, spec in tapsets2d.items()]
                  + [("stencil3d", name, st3.tapset_header(spec))
@@ -245,21 +260,24 @@ def main() -> int:
               f"{_build.library_path(*job).name}; kernels: [registers, "
               "spill-store bytes, stack-frame bytes] "
               f"{json.dumps(frames)}", flush=True)
-        if lib == "stencil2d":
+        if lib == "stencil2d" or name in large_tap_sets():
             check(len(frames) == 2 and all(
                 spill == 0 and stack == 0 for _, spill, stack in
-                frames.values()), f"stencil2d {name}: spill stores or a "
+                frames.values()), f"{lib} {name}: spill stores or a "
                 "stack frame")
 
-    phases = sys.argv[1:] or ["2d", "3d", "lm", "train"]
-    check(set(phases) <= {"2d", "3d", "lm", "train"},
-          f"unknown phases {phases}; pass any of 2d 3d lm train, or none "
-          "for all")
+    phases = sys.argv[1:] or ["2d", "3d", "systems", "lm", "train"]
+    check(set(phases) <= {"2d", "3d", "systems", "lm", "train"},
+          f"unknown phases {phases}; pass any of 2d 3d systems lm train, "
+          "or none for all")
     entries = []
     if "2d" in phases:
         entries.append(two_d(dev))
     if "3d" in phases:
         entries.append(three_d(dev, held))
+        torch.cuda.empty_cache()
+    if "systems" in phases:
+        systems(dev)
         torch.cuda.empty_cache()
     if "lm" in phases:
         entries.append(lm_serve(dev, held))
@@ -272,6 +290,135 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def large_tap_sets() -> dict:
+    """The tap sets past the 128 taps of earlier libraries, as a user
+    builds them: 169 and 289 taps in 2-D, 343 in 3-D."""
+    from repro_torch.api.define import blur, box
+
+    return {"box2d-r6": box(2, radius=6), "blur2d-r8": blur(2, radius=8),
+            "box3d-r3": box(3, radius=3)}
+
+
+# the batched runs of the main paths: (stencil, batch); the large sets'
+# domains (the paper's 2-D domain is 8352², its 3-D one 2560x288x384)
+BATCH_2D, BATCH_3D = ("j2d5pt", 4), ("j3d7pt", 2)
+LARGE_DOMAIN_2D, LARGE_DOMAIN_3D = (4096, 4096), (512, 288, 384)
+
+
+def zero_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+
+    for fn in (st.ebisu2d_padded, st3.ebisu3d_padded, fa.flash_attention_fwd,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv):
+        fn.launches = 0
+
+
+def stencil_bound(spec, t, cells, padded_cells, itemsize):
+    """The least time of one sweep: its bytes (the domain read, the padded
+    layout written) over 3.35 TB/s, or its flops over the fp32 (fp64)
+    peak; returns (ms, "bytes" or "operations")."""
+    from repro_torch.core.roofline import H100
+
+    t_bytes = (cells + padded_cells) * itemsize / H100.b_gm
+    t_ops = spec.flops_per_cell * t * cells / (
+        H100.thr_cmp_fp64 if itemsize == 8 else H100.thr_cmp)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_yardstick(spec, t, x):
+    """``t`` chained ``conv2d``/``conv3d`` calls of the tap set on ``x``
+    (TF32 off by the caller): the one-call PyTorch yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    rad = spec.radius
+    w = torch.zeros((1, 1) + (2 * rad + 1,) * spec.ndim, device=x.device)
+    for off, coef in spec.taps:
+        w[(0, 0) + tuple(o + rad for o in off)] = coef
+    conv = F.conv2d if spec.ndim == 2 else F.conv3d
+
+    def run(v=x[None, None]):
+        for _ in range(t):
+            v = conv(v, w, padding=rad)
+        return v
+
+    return run
+
+
+def batched_vs_looped(prog, xs, steps, what) -> dict:
+    """The batched run against a loop of ``.run`` over the same fields:
+    bit for bit, and their times side by side (CUDA events, median)."""
+    import torch
+
+    ys = prog.run_batched(xs, steps)
+    loop = torch.stack([prog.run(x, steps) for x in xs])
+    check(torch.equal(ys, loop), f"{what}: run_batched differs from a loop "
+          "of run")
+    print(f"[check] {what}: run_batched equal to a loop of run, bit for "
+          "bit", flush=True)
+    del ys, loop
+    batched_ms = median_ms(lambda: prog.run_batched(xs, steps), 5, 1)
+    looped_ms = median_ms(lambda: [prog.run(x, steps) for x in xs], 5, 1)
+    row = dict(stencil=prog.spec.name, batch=len(xs), steps=steps,
+               domain=list(prog.shape), batched_ms=batched_ms,
+               looped_ms=looped_ms, looped_over_batched=looped_ms
+               / batched_ms)
+    print("[timing] " + json.dumps(row), flush=True)
+    return row
+
+
+def large_set_rows(dev, cases, wrapper, plain, held) -> tuple[list, float]:
+    """Each large set's program (counted earlier) held to the oracle, its
+    kernel to the plain version (two launches, bit for bit) at the
+    program's own padded input, and its sweep timed beside the plain
+    version, the conv yardstick and the bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rows, max_err = [], 0.0
+    for name, c in cases.items():
+        prog, x, spec, t = c["prog"], c["x"], c["prog"].spec, c["prog"].t
+        held(c["y"], ref.reference(x, spec, c["steps"]), 1e-4,
+             f"{name} ({len(spec.taps)} taps) run({c['steps']}) vs oracle")
+        g = prog.geometry()
+        xp = torch.zeros(g["padded"], device=dev)
+        xp[tuple(slice(0, n) for n in x.shape)] = x
+        kw = (dict(height=x.shape[0], width=x.shape[1], bh=g["block"][0],
+                   bw=g["block"][1]) if spec.ndim == 2 else
+              dict(zdim=x.shape[0], ydim=x.shape[1], xdim=x.shape[2],
+                   zc=g["block"][0], ty=g["block"][1], tx=g["block"][2]))
+        plain_kw = {k: kw[k] for k in ("height", "width", "zdim", "ydim",
+                                       "xdim") if k in kw}
+        got = wrapper(xp, spec, t, **kw)
+        again = wrapper(xp, spec, t, **kw)
+        check(torch.equal(got, again), f"{name}: a second launch differs")
+        err = held(got, plain(xp, spec, t, **plain_kw), 1e-4,
+                   f"{name} kernel vs plain sweep (repeat bit-identical)")
+        max_err = max(max_err, err)
+        del got, again
+        out = torch.empty_like(xp)
+        ms = median_ms(lambda: wrapper(xp, spec, t, out=out, **kw), 10, 2)
+        plain_ms = median_ms(lambda: plain(xp, spec, t, **plain_kw), 3, 1)
+        library = conv_yardstick(spec, t, x)
+        held(library()[0, 0], prog.apply(x), 1e-4, f"{name} conv yardstick")
+        lib_ms = median_ms(library, 3, 1)
+        bound_ms, bound_by = stencil_bound(spec, t, x.numel(), xp.numel(), 4)
+        row = dict(stencil=name, taps=len(spec.taps), radius=spec.radius,
+                   t=t, domain=list(x.shape), tile=list(g["block"]),
+                   padded=list(g["padded"]), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   roofline_share=bound_ms / ms, launches=c["launches"])
+        rows.append(row)
+        print("[timing] " + json.dumps(row), flush=True)
+        del xp, out
+    return rows, max_err
 
 
 def held(got, want, tol, what):
@@ -348,9 +495,37 @@ def two_d(dev) -> dict:
     x5d = x5.double()
     y_d1 = prog_d.apply(x5d)
     y_dT = prog_d.run(x5d, 25)
+    # a batch through run_batched: one launch a sweep for the whole batch
+    prog5 = cases["j2d5pt"]["prog"]
+    xs = torch.stack([init_domain(j5, device=dev, seed=i)
+                      for i in range(BATCH_2D[1])])
+    before = st.ebisu2d_padded.launches
+    y_b = prog5.run_batched(xs, 25)
+    batched_launches = st.ebisu2d_padded.launches - before
+    # the caller's padded carry: two sweeps of 12
+    xp5 = torch.zeros(prog5.padded_shape, device=dev)
+    xp5[:j5.domain[0], :j5.domain[1]] = x5
+    before = st.ebisu2d_padded.launches
+    y_pad = prog5.run_padded(xp5, 24)[:j5.domain[0], :j5.domain[1]].clone()
+    padded_launches = st.ebisu2d_padded.launches - before
+    del xp5
+    # the large tap sets, each run(2t+1) at the plan's depth: 3 sweeps
+    large = {}
+    for name, spec in large_tap_sets().items():
+        if spec.ndim != 2:
+            continue
+        before = st.ebisu2d_padded.launches
+        prog = compile_stencil(spec, LARGE_DOMAIN_2D)
+        x = init_domain(spec, LARGE_DOMAIN_2D, device=dev, seed=0)
+        y = prog.run(x, 2 * prog.t + 1)
+        large[name] = dict(prog=prog, x=x, y=y, steps=2 * prog.t + 1,
+                           launches=st.ebisu2d_padded.launches - before)
     torch.cuda.synchronize()
     launches = st.ebisu2d_padded.launches
-    print(f"[main path] stencil2d launches: {launches}", flush=True)
+    print(f"[main path] stencil2d launches: {launches} (run_batched of "
+          f"{BATCH_2D[1]} fields: {batched_launches}; run_padded: "
+          f"{padded_launches}; large tap sets: "
+          f"{ {n: c['launches'] for n, c in large.items()} })", flush=True)
     check(st3.ebisu3d_padded.launches == 0
           and fa.flash_attention_fwd.launches == 0
           and fa.flash_attention_bwd_dq.launches == 0
@@ -359,9 +534,15 @@ def two_d(dev) -> dict:
     # apply = 1 sweep; run(2t+1) = sweeps of t, t, 1 — for every program
     for name, c in cases.items():
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
-    check(launches == 4 * len(names) + 3 + 4,
-          f"main path launched the kernel {launches} times, not "
-          f"{4 * len(names) + 7}")
+    check(batched_launches == 3, f"run_batched of {BATCH_2D[1]} fields: "
+          f"{batched_launches} launches, not one a sweep (3)")
+    check(padded_launches == 2, f"run_padded(24): {padded_launches} "
+          "launches, not 2")
+    for name, c in large.items():
+        check(c["launches"] == 3, f"{name}: {c['launches']} launches, not 3")
+    want = 4 * len(names) + 3 + 4 + 3 + 2 + 3 * len(large)
+    check(launches == want,
+          f"main path launched the kernel {launches} times, not {want}")
 
     # ---- correctness, uncounted -----------------------------------------
     max_err = 0.0
@@ -395,6 +576,16 @@ def two_d(dev) -> dict:
          1e-4, "j2d5pt periodic run(25) vs oracle")
     held(y_d1, ref.reference(x5d, j5, 12), 1e-10, "j2d5pt f64 apply(12)")
     held(y_dT, ref.reference(x5d, j5, 25), 1e-10, "j2d5pt f64 run(25)")
+    check(y_b.shape == xs.shape, "run_batched: output shape")
+    for i in range(len(xs)):
+        held(y_b[i], ref.reference(xs[i], j5, 25), 1e-4,
+             f"j2d5pt run_batched field {i} vs oracle")
+    del y_b
+    check(torch.equal(y_pad, prog5.run(x5, 24)), "run_padded(24) differs "
+          "from run(24)")
+    print("[check] j2d5pt run_padded(24) equal to run(24), bit for bit",
+          flush=True)
+    del y_pad
     g = prog_d.geometry()
     xpd = torch.zeros(g["padded"], dtype=torch.float64, device=dev)
     xpd[:x5d.shape[0], :x5d.shape[1]] = x5d
@@ -487,11 +678,19 @@ def two_d(dev) -> dict:
         model_2d(name, st.tile_schedule(spec, t, bh, bw, height, width),
                  kern_ms)
 
+    batched = batched_vs_looped(prog5, xs, 25, "j2d5pt at 8352^2")
+    del xs
+    large_rows, err = large_set_rows(dev, large, st.ebisu2d_padded,
+                                     st.ebisu2d_padded_plain, held)
+    max_err = max(max_err, err)
     entry_2d = kernel_entry("stencil2d", SOURCE, REPLACES, launches,
                             max_err, rows,
                             "sums of one sweep of each 2-D Table-2 stencil "
-                            "at its Table-2 domain and EBISU depth, f32")
-    del cases, x5, x5d, y_per, y_d1, y_dT, buf, src
+                            "at its Table-2 domain and EBISU depth, f32; "
+                            "the batched run and the large tap sets are "
+                            "listed apart", batched=batched,
+                            large_taps=large_rows)
+    del cases, x5, x5d, y_per, y_d1, y_dT, buf, src, large
     torch.cuda.empty_cache()
     return entry_2d
 
@@ -594,9 +793,29 @@ def three_d(dev, held) -> dict:
     before = st3.ebisu3d_padded.launches
     y_s = prog_s.apply(x5)
     stream_launches = st3.ebisu3d_padded.launches - before
+    # a batch through run_batched: one launch a sweep for the whole batch
+    prog7 = cases["j3d7pt"]["prog"]
+    xs = torch.stack([init_domain(j7, seed=i)
+                      for i in range(BATCH_3D[1])])
+    before = st3.ebisu3d_padded.launches
+    y_b = prog7.run_batched(xs, 17)
+    batched_launches = st3.ebisu3d_padded.launches - before
+    # the large tap set, run(2t+1) at the plan's depth: 3 sweeps
+    large = {}
+    for name, spec in large_tap_sets().items():
+        if spec.ndim != 3:
+            continue
+        before = st3.ebisu3d_padded.launches
+        prog = compile_stencil(spec, LARGE_DOMAIN_3D)
+        x = init_domain(spec, LARGE_DOMAIN_3D, seed=0)
+        y = prog.run(x, 2 * prog.t + 1)
+        large[name] = dict(prog=prog, x=x, y=y, steps=2 * prog.t + 1,
+                           launches=st3.ebisu3d_padded.launches - before)
     torch.cuda.synchronize()
     launches = st3.ebisu3d_padded.launches
-    print(f"[main path 3-D] stencil3d launches: {launches}", flush=True)
+    print(f"[main path 3-D] stencil3d launches: {launches} (run_batched of "
+          f"{BATCH_3D[1]} fields: {batched_launches}; large tap sets: "
+          f"{ {n: c['launches'] for n, c in large.items()} })", flush=True)
     check(st.ebisu2d_padded.launches == 0
           and fa.flash_attention_fwd.launches == 0
           and fa.flash_attention_bwd_dq.launches == 0
@@ -606,7 +825,11 @@ def three_d(dev, held) -> dict:
         check(c["launches"] == 4, f"{name}: {c['launches']} launches, not 4")
     check(stream_launches == 1,
           f"stream apply: {stream_launches} launches, not 1")
-    want = 4 * len(names) + 3 + 4 + 1
+    check(batched_launches == 3, f"run_batched of {BATCH_3D[1]} fields: "
+          f"{batched_launches} launches, not one a sweep (3)")
+    for name, c in large.items():
+        check(c["launches"] == 3, f"{name}: {c['launches']} launches, not 3")
+    want = 4 * len(names) + 3 + 4 + 1 + 3 + 3 * len(large)
     check(launches == want,
           f"3-D path launched the kernel {launches} times, not {want}")
 
@@ -667,6 +890,11 @@ def three_d(dev, held) -> dict:
     held(y_d1, ref.reference(x7d, j7, 8), 1e-10, "j3d7pt f64 apply(8)")
     held(y_dT, ref.reference(x7d, j7, 17), 1e-10, "j3d7pt f64 run(17)")
     del y_per, y_d1, y_dT
+    check(y_b.shape == xs.shape, "run_batched: output shape")
+    for i in range(len(xs)):
+        held(y_b[i], ref.reference(xs[i], j7, 17), 1e-4,
+             f"j3d7pt run_batched field {i} vs oracle")
+    del y_b
     g = prog_d.geometry()
     xpd, err = kernel_vs_plain(j7, 8, x7d, g, torch.float64, 1e-10,
                                "j3d7pt f64")
@@ -779,13 +1007,75 @@ def three_d(dev, held) -> dict:
                   launches=stream_launches)
     print("[timing] " + json.dumps(stream), flush=True)
     model_3d("j2d5pt stream", launched["j2d5pt stream"][0], lifted, s_ms)
+    del xps, outs
+    torch.cuda.empty_cache()
+    batched = batched_vs_looped(prog7, xs, 17, "j3d7pt at 2560x288x384")
+    del xs
+    large_rows, err = large_set_rows(dev, large, st3.ebisu3d_padded,
+                                     st3.ebisu3d_padded_plain, held)
+    max_err = max(max_err, err)
     return kernel_entry(
         "stencil3d", SOURCE_3D, REPLACES_3D, launches, max_err, rows,
         "sums of one sweep of each 3-D Table-2 stencil at 2560x288x384 "
-        "and EBISU depth, f32; the stream sweep is listed apart",
+        "and EBISU depth, f32; the stream sweep, the batched run and the "
+        "large tap set are listed apart",
         kernel_smem_bytes={r["stencil"]: r["kernel_smem_bytes"]
                            for r in rows + [stream]},
-        stream=stream)
+        stream=stream, batched=batched, large_taps=large_rows)
+
+
+def systems(dev) -> None:
+    """The coupled systems (``repro_torch.systems``), which compute in plain
+    torch through the tap engine and launch no kernel: each library system
+    at 512² on the card held against the same program on the CPU in
+    float64, then timed at 4096² in f32 (CUDA events, median)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Boundary
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.systems import compile_system, get_system, system_names
+
+    zero_counts()
+    for name in system_names():
+        spec = get_system(name)
+        t, steps = 4, 9
+        for boundary in (Boundary.periodic(), Boundary.neumann()):
+            rng = np.random.default_rng(0)
+            arrs = {f: rng.uniform(0.2, 0.8, (512, 512)).astype(np.float32)
+                    for f in spec.fields}
+            card = compile_system(spec, (512, 512), t=t, boundary=boundary)
+            got = card.run({f: torch.from_numpy(v).to(dev)
+                             for f, v in arrs.items()}, steps)
+            cpu = compile_system(spec, (512, 512), t=t, boundary=boundary,
+                                 dtype=torch.float64)
+            want = cpu.run({f: torch.from_numpy(v).double()
+                            for f, v in arrs.items()}, steps)
+            for f in spec.fields:
+                check(got[f].device.type == "cuda", f"{name}: field {f} "
+                      "left the card")
+                held(got[f].cpu(), want[f], 1e-4,
+                     f"system {name} {boundary!r} field {f} at 512^2, card "
+                     "f32 vs CPU f64")
+        big = {f: torch.rand((4096, 4096), generator=torch.Generator(
+            device=dev).manual_seed(i), device=dev) * 0.6 + 0.2
+            for i, f in enumerate(spec.fields)}
+        prog = compile_system(spec, (4096, 4096), t=t,
+                              boundary=Boundary.periodic())
+        out = prog.run(big, steps)
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              f"system {name}: non-finite output at 4096^2")
+        ms = median_ms(lambda: prog.run(big, steps), 5, 1)
+        row = dict(system=name, fields=len(spec.fields), domain=[4096, 4096],
+                   t=t, steps=steps, boundary="periodic", dtype="float32",
+                   ms=ms, cell_steps_per_s=4096 * 4096 * steps
+                   / (ms * 1e-3), route="plain torch (no kernel)")
+        print("[timing] " + json.dumps(row), flush=True)
+        del big, out
+    check(st.ebisu2d_padded.launches == 0
+          and st3.ebisu3d_padded.launches == 0,
+          "the systems phase launched a stencil kernel")
 
 
 def lm_serve(dev, held) -> dict:

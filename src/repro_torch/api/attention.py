@@ -20,9 +20,11 @@ Implementation selection (``impl=``):
   * ``"chunked"`` — the plain-torch online-softmax path
     (``models/attention.flash_attention``).
   * ``"dense"``   — ``models/attention.dense_attention``, the oracle.
-  * ``"auto"``    — ``"cuda"`` for chunk-divisible shapes on a CUDA
-    tensor, ``"chunked"`` otherwise (the reference picks Pallas when not
-    in interpret mode; here the tensor's device decides, per call).
+  * ``"auto"``    — ``"cuda"`` where the kernels launch: chunk-divisible
+    shapes on a CUDA tensor, a head_dim and dtype the kernels take
+    (``flash_attention.launch_refusal``); ``"chunked"`` otherwise (the
+    reference picks Pallas when not in interpret mode; here the tensor's
+    device decides, per call).
 
 Semantics are the dense oracle's: causal keeps key ≤ query position, a
 window keeps ``kpos > qpos - window``, query head ``h`` reads kv head
@@ -151,11 +153,16 @@ class AttentionProgram:
     def _resolve_impl(self, s: int, sk: int, device: torch.device) -> str:
         """The impl a (s, sk) call dispatches: 'auto' picks the CUDA
         kernel only where it can launch (chunk-divisible shapes on a CUDA
-        tensor); explicit 'cuda' refuses undivisible shapes with the fix
+        tensor, and a head_dim and dtype the kernels take); explicit
+        'cuda' refuses what it cannot launch with the limit and the fix
         spelled out."""
+        from repro_torch.kernels.flash_attention import launch_refusal
+
         sp = self.spec
         qc, kc = min(sp.q_chunk, s), min(sp.kv_chunk, sk)
         divisible = (s % qc == 0) and (sk % kc == 0)
+        refusal = (launch_refusal(sp.head_dim, self.dtype)
+                   if device.type == "cuda" else None)
         if self.impl == "cuda":
             if not divisible:
                 raise ValueError(
@@ -163,10 +170,14 @@ class AttentionProgram:
                     f"S={s} %% q_chunk({qc}) or Sk={sk} %% kv_chunk({kc}) "
                     "!= 0 — pad the sequence, change q_chunk/kv_chunk, or "
                     "compile impl='chunked'")
+            if refusal is not None:
+                raise ValueError(f"impl='cuda' cannot launch here: "
+                                 f"{refusal} — compile impl='chunked' (or "
+                                 "'auto')")
             return "cuda"
         if self.impl == "auto":
-            return "cuda" if (divisible and device.type == "cuda") \
-                else "chunked"
+            return ("cuda" if divisible and device.type == "cuda"
+                    and refusal is None else "chunked")
         return self.impl
 
     # ----------------------------------------------------------- runners ----

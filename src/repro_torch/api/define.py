@@ -151,8 +151,10 @@ def spec_from_json(source) -> StencilSpec:
     everything else is optional — omitted cost-model fields are derived
     from the tap structure.
 
-    A JSON object with a ``"fields"`` key is a coupled *system* spec,
-    which the port does not run yet: it is refused.
+    A JSON object with a ``"fields"`` key is a coupled *system* spec and
+    dispatches to :func:`repro_torch.systems.system_from_json`, returning
+    a :class:`~repro_torch.systems.spec.SystemSpec` (compile it with
+    ``repro_torch.systems.compile_system``).
     """
     if isinstance(source, str):
         with open(source) as f:
@@ -160,9 +162,8 @@ def spec_from_json(source) -> StencilSpec:
     else:
         obj = dict(source)
     if "fields" in obj:
-        raise NotImplementedError(
-            "coupled multi-field systems are not ported yet (ROADMAP "
-            "Queue 1 item 9); the port builds single-field specs only")
+        from repro_torch.systems import system_from_json
+        return system_from_json(obj)
     if "operator" in obj:
         op = dict(obj["operator"])
         if "kind" not in op:

@@ -15,6 +15,8 @@ depth and the boundary execution strategy once, and returns an immutable
     prog_s = compile_stencil(get("j2d5pt"), (8352, 8352), t=12,
                              mode="stream")
     y = prog_s.apply(x)      # 2-D streamed in y as an (H, 1, W) domain
+    ys = prog.run_batched(xs, 25)   # (B, 8352, 8352): one launch a sweep
+    xp = prog.run_padded(xp, 24)    # the caller's padded carry
 
 2-D specs run the tile kernel (``kernels/stencil2d.py``); 3-D specs, and
 2-D specs under ``mode="stream"``, run the z-streaming kernel
@@ -26,12 +28,18 @@ carry, the port runs an eager Python loop of kernel launches over two
 ping-pong buffers: pad once, launch, swap, crop once (zero Dirichlet and
 the constant Dirichlet shift), or re-pin the ghost halo every sweep
 (periodic, reflect, neumann, and Dirichlet with an unnormalized tap set).
+Where the reference ``jax.vmap``s that chain over a leading batch axis
+(``run_batched``), the port's chain carries the axis through the same
+steps, and each sweep is one launch for the whole batch: both kernels
+take a batch of padded layouts in their grid.  ``run_padded`` chains
+sweeps on a padded buffer the caller owns (2-D, zero Dirichlet).
 
 Programs run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every sweep takes the kernel's plain version.
-Not ported yet, and refused with the ROADMAP item that brings them:
-``mode="tuned"``, ``mesh=``, ``run_sharded``, ``run_resumable``,
-``run_batched`` and ``run_padded``.
+Both kernels build a library for every tap set ``validate_spec``
+accepts.  Not ported yet, and refused with the ROADMAP item that brings
+them: ``mode="tuned"``, ``mesh=``, ``run_sharded`` and
+``run_resumable``.
 """
 from __future__ import annotations
 
@@ -62,8 +70,6 @@ _LATER = {
     "mesh": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
     "run_sharded": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
     "run_resumable": "ROADMAP Queue 1 item 10 (resilient campaigns)",
-    "run_batched": "ROADMAP Queue 1 item 6b (slice-1 leftovers)",
-    "run_padded": "ROADMAP Queue 1 item 6b (slice-1 leftovers)",
 }
 
 
@@ -309,7 +315,8 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
     axis is never ghost-extended) and runs on the extended domain.
     Buffers are ``compute_dtype``; only the result is cast to ``dtype``.
     One sweep (``total_t == depth``) is what :meth:`StencilProgram.apply`
-    runs.
+    runs.  A field with a leading batch axis keeps it through every step
+    (each buffer gains it, so each sweep is one launch for the batch).
     """
     boundary.validate_for(spec, t=depth)
     groups = _grouped(sweep_schedule(total_t, depth))
@@ -333,11 +340,14 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
                                       plan), index)
 
     def chain(v: torch.Tensor) -> torch.Tensor:
+        lead = tuple(v.shape[:v.dim() - spec.ndim])      # the batch axis
         for d, count in groups:
             padded, sweep, index = launches[d]
+            index = (Ellipsis, *index)
             halo = halo_of(d)
-            crop = tuple(slice(halo, halo + n) for n in shape)
-            xp = torch.zeros(padded, dtype=compute_dtype, device=v.device)
+            crop = (Ellipsis, *(slice(halo, halo + n) for n in shape))
+            xp = torch.zeros(lead + padded, dtype=compute_dtype,
+                             device=v.device)
             buf = torch.empty_like(xp)
             if repin or affine:
                 for _ in range(count):
@@ -401,14 +411,14 @@ class StencilProgram:
         self.kernel_spec = kernel_spec   # the lifted spec under "stream"
 
     # ------------------------------------------------------- execution ----
-    def _check(self, x) -> torch.Tensor:
+    def _check(self, x, batched: bool = False) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(x, device=self.device)
-        if tuple(x.shape) != self.shape:
+        if tuple(x.shape[1:] if batched else x.shape) != self.shape:
             raise ValueError(
-                f"program compiled for shape {self.shape} (got "
-                f"{tuple(x.shape)}); compile_stencil a new program for a "
-                "new domain shape")
+                f"program compiled for shape {self.shape} "
+                f"({'batched ' if batched else ''}got {tuple(x.shape)}); "
+                "compile_stencil a new program for a new domain shape")
         if x.device != self.device:
             raise ValueError(f"program compiled for {self.device}; the "
                              f"field is on {x.device}")
@@ -441,26 +451,81 @@ class StencilProgram:
         A ``mode="stream"`` program runs one sweep (``apply``) only, as the
         reference's does.
         """
+        x = self._check(x)
+        return self._run_fn(total_t)(x) if total_t else x
+
+    def _run_fn(self, total_t: int):
         if self.mode == "stream":
             raise ValueError(
                 "run supports mode 'fused' (use apply for the lifted "
                 "'stream' path)")
-        x = self._check(x)
-        if total_t == 0:
-            return x
         depth = max(1, min(self.t, total_t))
-        fn = RUNNER_CACHE.get_or_build(
+        return RUNNER_CACHE.get_or_build(
             (self._key, "run", total_t),
             lambda: _build_chain(self.spec, self.shape, self.dtype, total_t,
                                  depth, self.plan, self.hw, self.boundary,
                                  self.compute_dtype, self.kernel_spec))
-        return fn(x)
 
-    def run_batched(self, xs, total_t: int | None = None):
-        raise _not_ported("run_batched")
+    def run_batched(self, xs, total_t: int | None = None) -> torch.Tensor:
+        """A leading batch axis of independent fields through the chain of
+        :meth:`run`, one kernel launch per sweep for the whole batch
+        (``total_t`` defaults to the program's depth).
 
-    def run_padded(self, xp, total_t: int):
-        raise _not_ported("run_padded")
+            xs = torch.stack([x0, x1, x2])      # (3, *prog.shape)
+            ys = prog.run_batched(xs, 64)       # one launch a sweep
+        """
+        xs = self._check(xs, batched=True)
+        total_t = self.t if total_t is None else total_t
+        return self._run_fn(total_t)(xs) if total_t else xs
+
+    @property
+    def padded_shape(self) -> tuple[int, ...]:
+        """The padded layout of a sweep at the program's depth: the
+        buffer :meth:`run_padded` carries."""
+        return tuple(self.geometry()["padded"])
+
+    def run_padded(self, xp: torch.Tensor, total_t: int) -> torch.Tensor:
+        """``total_t`` steps on a padded buffer the caller owns (2-D,
+        zero Dirichlet, ``mode="fused"``, the program's depth dividing
+        ``total_t``): ``xp`` has :attr:`padded_shape` and the compute
+        dtype, the domain at its origin.  The sweeps ping-pong ``xp``
+        with one partner buffer and return the one holding the result;
+        as with the reference's donated carry, do not rely on ``xp``
+        after the call.
+
+            xp = torch.zeros(prog.padded_shape, device="cuda")
+            xp[:h, :w] = x
+            xp = prog.run_padded(xp, 24)        # xp[:h, :w] == run(x, 24)
+        """
+        if (self.spec.ndim != 2 or not self.boundary.is_zero_dirichlet
+                or self.mode != "fused"):
+            raise ValueError("run_padded is the 2-D zero-Dirichlet "
+                             "padded-carry path (fused); use run()")
+        if xp.dtype != self.compute_dtype:
+            raise ValueError(
+                f"run_padded carry is the compute buffer: expected dtype "
+                f"{str(self.compute_dtype).removeprefix('torch.')}, got "
+                f"{str(xp.dtype).removeprefix('torch.')} (the caller owns "
+                "the padded buffer at the program's compute_dtype)")
+        if tuple(xp.shape) != self.padded_shape:
+            raise ValueError(
+                f"run_padded carry has the program's padded_shape "
+                f"{self.padded_shape}; got {tuple(xp.shape)}")
+        if xp.device != self.device:
+            raise ValueError(f"program compiled for {self.device}; the "
+                             f"carry is on {xp.device}")
+        if total_t % self.t:
+            raise ValueError(
+                f"padded chaining needs a uniform sweep depth: the "
+                f"program's t={self.t} must divide total_t={total_t}")
+        itemsize = xp.element_size()
+        _, sweep = _sweep_launch(self.spec, self.t, self.shape, self.hw,
+                                 itemsize, self.plan)
+        buf = torch.empty_like(xp) if total_t else xp
+        for _ in range(total_t // self.t):
+            sweep(xp, out=buf)
+            xp, buf = buf, xp
+        return xp
 
     def run_sharded(self, x, total_t: int):
         raise _not_ported("run_sharded")

@@ -117,14 +117,25 @@ def fit_tile_2d(spec: StencilSpec, t: int, shape: tuple[int, int],
 
 # The 2-D kernel (csrc/stencil2d.cu and the header kernels/stencil2d_gen.py
 # writes) runs THREADS threads a CTA, at most two CTAs an SM.
-def rows_per_thread_2d(rad: int, itemsize: int) -> int:
+# Float64 tap sets of more taps than this compute one row a thread.
+LARGE_TAPS_2D = 169
+
+
+def rows_per_thread_2d(rad: int, itemsize: int, ntaps: int) -> int:
     """``R``: the vertically consecutive cells a thread of the 2-D kernel
-    computes at each step, with one accumulator each in registers.  A
-    step whose live region has fewer rows runs one row a thread.  Within
-    64 registers a thread: 8 rows, and 4 for float64 beyond radius 2 (at
-    8, ptxas spills float64 dense sets of radius 3–8: ``python -m
-    repro_torch.launch.stencil3d_registers --ndim 2``)."""
-    return 4 if itemsize == 8 and rad > 2 else 8
+    computes at each step, with one accumulator each in registers, for a
+    set of ``ntaps`` taps.  A step whose live region has fewer rows runs
+    one row a thread.  Within 64 registers a thread: 8 rows; 4 for
+    float64 beyond radius 2 (at 8, ptxas spills float64 dense sets of
+    radius 3–8: ``python -m repro_torch.launch.stencil_registers --ndim
+    2``); and 1 for float64 sets of more than ``LARGE_TAPS_2D`` taps (at
+    4, ptxas spills dense sets of 200–289 taps and ``blur(2,
+    radius=8)``, which spills at 2 and 3 too and even at 128 registers;
+    at 1 no set of 169–289 taps probed spills: ``--taps 170 200 225 289
+    --radii 7 8 --rows 1 2 3 4``)."""
+    if itemsize == 8 and rad > 2:
+        return 1 if ntaps > LARGE_TAPS_2D else 4
+    return 8
 
 
 def tile_valid_fraction(spec: StencilSpec, t: int, bh: int, bw: int) -> float:
@@ -203,10 +214,13 @@ def max_cells_per_thread(rad: int, itemsize: int) -> int:
     """The cells a thread of the 3-D kernel owns at most: each keeps
     ``2·rad`` partial sums in registers, 64 registers of them in all up
     to radius 2 and 48 beyond, where the kernel also holds more rows of
-    offsets (``python -m repro_torch.launch.stencil3d_registers --regs
+    offsets (``python -m repro_torch.launch.stencil_registers --regs
     64``: at 64, ptxas spills dense 128-tap sets of radius 3 and 4 in
-    float64 and the sets of radius 7 and 8)."""
-    regs = 64 if rad <= 2 else 48
+    float64 and the sets of radius 7 and 8), and 40 in float64 from
+    radius 6 on, one cell a thread (at 48, two cells, ptxas spills the
+    star and the dense 128-tap set of radius 6 once the kernel takes a
+    batch of fields, and a dense 2197-tap set)."""
+    regs = 64 if rad <= 2 else 40 if itemsize == 8 and rad >= 6 else 48
     return max(1, regs * 4 // (2 * rad * itemsize))
 
 

@@ -3,7 +3,8 @@ port's hardware model: one NVIDIA H100.
 
 The port's own copy of the roofline math in the reference's
 ``repro.core.roofline`` (``HardwareModel``, ``attainable``,
-``desired_depth``, ``min_tile_width``; the equations are the paper's):
+``desired_depth``, ``desired_depth_device_tiled``, ``min_tile_width``,
+``spec_cost_summary``; the equations are the paper's):
 
     T_gm  = a_gm · D_gm / B_gm · S_cell                     (Eq 2)
     T_sm  = a_sm · D_sm · t / B_sm · S_cell                 (Eq 3)
@@ -139,12 +140,61 @@ def desired_depth(spec: StencilSpec, hw: HardwareModel, *,
     return (spec.a_gm / hw.b_gm) * (hw.b_sm / a_sm)
 
 
+def desired_depth_device_tiled(spec: StencilSpec, hw: HardwareModel,
+                               tile: tuple[int, int], *,
+                               rst: bool = True) -> float:
+    """Eq 18/19: depth at which sm time covers the (halo-inflated) gm time.
+
+    D_gm = tile_x·tile_y + (tile_x+tile_y)·2·t·rad ; D_sm = tile_x·tile_y.
+    Solve  a_sm·D_sm·t/B_sm  >  a_gm·D_gm/B_gm  for t.
+    """
+    a_sm = spec.a_sm_rst if rst else spec.a_sm
+    tx, ty = tile
+    d_sm = tx * ty
+    # a_sm·d_sm/B_sm · t  >  a_gm·(d_sm + (tx+ty)·2·rad·t)/B_gm
+    lhs_slope = a_sm * d_sm / hw.b_sm
+    rhs_slope = spec.a_gm * (tx + ty) * 2 * spec.radius / hw.b_gm
+    rhs_const = spec.a_gm * d_sm / hw.b_gm
+    denom = lhs_slope - rhs_slope
+    if denom <= 0:
+        return math.inf
+    return rhs_const / denom
+
+
 def min_tile_width(spec: StencilSpec, hw: HardwareModel, *,
                    rst: bool = True) -> float:
     """Eq 23: minimum square-tile width so halo gm traffic stays
     sub-dominant."""
     a_sm = spec.a_sm_rst if rst else spec.a_sm
     return 4 * spec.a_gm * hw.b_sm / (a_sm * hw.b_gm) * spec.radius
+
+
+def spec_cost_summary(spec: StencilSpec, hw: HardwareModel = H100) -> dict:
+    """The §5/§6 view of a spec: its cost-model numbers (derived or
+    overridden — see ``stencil_spec.derive_cost_model``), whether each one
+    matches the pure derivation, and the model's headline decisions
+    (Eq 17 desired depth, Eq 23 minimum tile width, arithmetic intensity)
+    on ``hw`` (default: the H100 datasheet model).  The CLI prints this
+    for user-defined stencils so the derived cost model is inspectable."""
+    from repro_torch.core.stencil_spec import derive_cost_model
+    derived = derive_cost_model(spec.taps, spec.ndim)
+    return {
+        "name": spec.name,
+        "ndim": spec.ndim,
+        "radius": spec.radius,
+        "npoints": spec.npoints,
+        "shape_kind": spec.shape_kind,
+        "tap_sum": spec.tap_sum,
+        "flops_per_cell": spec.flops_per_cell,
+        "a_sm": spec.a_sm,
+        "a_sm_rst": spec.a_sm_rst,
+        "a_gm": spec.a_gm,
+        "overridden": sorted(k for k, v in derived.items()
+                             if getattr(spec, k) != v),
+        "arith_intensity": spec.flops_per_cell / (spec.a_gm * hw.s_cell),
+        "desired_depth_eq17": desired_depth(spec, hw, rst=True),
+        "min_tile_width_eq23": min_tile_width(spec, hw, rst=True),
+    }
 
 
 # ------------------------------------------------------------- attention --

@@ -7,6 +7,12 @@
 // zero-Dirichlet steps on the padded (hp, wp) layout, which holds the
 // height x width domain at the origin and zeros outside it, on input and
 // on output (the input's padding may hold anything: it is read as 0).
+// A launch may take a batch of such layouts, one after another in memory
+// (the reference vmaps its kernel over a leading batch axis): blockIdx.z
+// is the field, and its CTAs read and write that field's layout alone.
+// Memory rows count through the batch (field f's row r is row f*hp + r),
+// so a CTA keeps one row offset, not two moved pointers; an interior CTA
+// keeps no domain row at all.
 // The TPU kernel streams full-width strips through 128 MiB of VMEM; here
 // a block has at most 227 KB of shared memory, so both axes are tiled.
 //
@@ -74,7 +80,7 @@
 #include "stencil2d_taps.cuh"
 
 struct Geom2 {
-  int wp;             // row pitch of the padded layout
+  int hp, wp;         // rows of one field's padded layout, and its pitch
   int height, width;  // the domain
   int t, bh, bw, halo;
   int pitch;          // bw + 2*halo: the row pitch of both shared buffers
@@ -100,13 +106,14 @@ __device__ __forceinline__ bool inside(int i, int n) {
 
 // One step: the level-s region, rows [ly, ly + ny) x columns [lx, lx + nx)
 // of the tile, from the level below in src; into dst, or at the last step
-// into y.  RB rows a thread (RB <= ny).
+// into y.  RB rows a thread (RB <= ny).  r0: the domain row of tile row 0
+// (edge tests), rm: its memory row.
 template <typename T, int RB, bool EDGE>
 __device__ __forceinline__ void step_rows(const T* __restrict__ src,
                                           T* __restrict__ dst,
                                           T* __restrict__ y, const Geom2& g,
-                                          int r0, int c0, int ly, int lx,
-                                          int ny, int nx, bool last) {
+                                          int r0, int rm, int c0, int ly,
+                                          int lx, int ny, int nx, bool last) {
   constexpr int RY = ST2_REACH_Y;
   const int nb = (ny + RB - 1) / RB;
   const int items = nb * nx;
@@ -141,7 +148,7 @@ __device__ __forceinline__ void step_rows(const T* __restrict__ src,
     }
     const bool col_in = !EDGE || inside(c0 + cc, g.width);
     if (last) {
-      T* out = y + static_cast<size_t>(r0 + rb) * g.wp + (c0 + cc);
+      T* out = y + static_cast<size_t>(rm + rb) * g.wp + (c0 + cc);
 #pragma unroll
       for (int j = 0; j < RB; ++j) {
         T o = acc[j];
@@ -171,9 +178,10 @@ __device__ __forceinline__ void tile_cta(const T* __restrict__ x,
                                          T* __restrict__ y, const Geom2& g,
                                          T* sm) {
   constexpr int RY = ST2_REACH_Y, RX = ST2_REACH_X;
-  // global row and column of tile cell (0, 0)
+  // global row and column of tile cell (0, 0), and its memory row
   const int r0 = static_cast<int>(blockIdx.y) * g.bh - g.halo;
   const int c0 = static_cast<int>(blockIdx.x) * g.bw - g.halo;
+  const int rm = r0 + static_cast<int>(blockIdx.z) * g.hp;
   T* src = sm;
   T* dst = sm + g.buf_cells;
 
@@ -187,13 +195,12 @@ __device__ __forceinline__ void tile_cta(const T* __restrict__ x,
     int ix = static_cast<int>(threadIdx.x) % nx;
     for (int idx = threadIdx.x; idx < n; idx += ST2_THREADS) {
       const int gr = r0 + ly + iy, gc = c0 + lx + ix;
+      const size_t at = static_cast<size_t>(rm + ly + iy) * g.wp + gc;
       T v;
       if (EDGE) {
-        v = inside(gr, g.height) && inside(gc, g.width)
-                ? x[static_cast<size_t>(gr) * g.wp + gc]
-                : T(0);
+        v = inside(gr, g.height) && inside(gc, g.width) ? x[at] : T(0);
       } else {
-        v = x[static_cast<size_t>(gr) * g.wp + gc];
+        v = x[at];
       }
       src[(ly + iy) * g.pitch + lx + ix] = v;
       ix += rq;
@@ -211,9 +218,11 @@ __device__ __forceinline__ void tile_cta(const T* __restrict__ x,
     const int ny = g.bh + 2 * (g.t - s) * RY, nx = g.bw + 2 * (g.t - s) * RX;
     const bool last = s == g.t;
     if (ny >= R) {
-      step_rows<T, R, EDGE>(src, dst, y, g, r0, c0, ly, lx, ny, nx, last);
+      step_rows<T, R, EDGE>(src, dst, y, g, r0, rm, c0, ly, lx, ny, nx,
+                            last);
     } else {
-      step_rows<T, 1, EDGE>(src, dst, y, g, r0, c0, ly, lx, ny, nx, last);
+      step_rows<T, 1, EDGE>(src, dst, y, g, r0, rm, c0, ly, lx, ny, nx,
+                            last);
     }
     if (!last) {
       __syncthreads();
@@ -245,11 +254,11 @@ __global__ void __launch_bounds__(ST2_THREADS, 2)
 }
 
 template <typename T, int R>
-static int launch(const T* x, T* y, int hp, int wp, int height, int width,
-                  int t, int bh, int bw, void* stream) {
-  if (t < 1 || bh < 1 || bw < 1 || height < 1 || width < 1 ||
-      height > hp || width > wp || hp % bh != 0 || wp % bw != 0 ||
-      t > INT_MAX / 2 / ST2_RADIUS) {
+static int launch(const T* x, T* y, int batch, int hp, int wp, int height,
+                  int width, int t, int bh, int bw, void* stream) {
+  if (batch < 1 || batch > 65535 || t < 1 || bh < 1 || bw < 1 ||
+      height < 1 || width < 1 || height > hp || width > wp ||
+      hp % bh != 0 || wp % bw != 0 || t > INT_MAX / 2 / ST2_RADIUS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long halo = static_cast<long long>(t) * ST2_RADIUS;
@@ -260,6 +269,7 @@ static int launch(const T* x, T* y, int hp, int wp, int height, int width,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Geom2 g;
+  g.hp = hp;
   g.wp = wp;
   g.height = height;
   g.width = width;
@@ -273,7 +283,7 @@ static int launch(const T* x, T* y, int hp, int wp, int height, int width,
       tile2d_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(wp / bw, hp / bh);
+  const dim3 grid(wp / bw, hp / bh, batch);
   tile2d_kernel<T, R><<<grid, ST2_THREADS, static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(x, y, g);
   return static_cast<int>(cudaGetLastError());
@@ -281,16 +291,19 @@ static int launch(const T* x, T* y, int hp, int wp, int height, int width,
 
 extern "C" {
 
-int stencil2d_f32(const float* x, float* y, int hp, int wp, int height,
-                  int width, int t, int bh, int bw, void* stream) {
-  return launch<float, ST2_ROWS_F32>(x, y, hp, wp, height, width, t, bh, bw,
-                                     stream);
+// batch padded layouts of (hp, wp), one after another; batch 1 is one field
+int stencil2d_f32(const float* x, float* y, int batch, int hp, int wp,
+                  int height, int width, int t, int bh, int bw,
+                  void* stream) {
+  return launch<float, ST2_ROWS_F32>(x, y, batch, hp, wp, height, width, t,
+                                     bh, bw, stream);
 }
 
-int stencil2d_f64(const double* x, double* y, int hp, int wp, int height,
-                  int width, int t, int bh, int bw, void* stream) {
-  return launch<double, ST2_ROWS_F64>(x, y, hp, wp, height, width, t, bh,
-                                      bw, stream);
+int stencil2d_f64(const double* x, double* y, int batch, int hp, int wp,
+                  int height, int width, int t, int bh, int bw,
+                  void* stream) {
+  return launch<double, ST2_ROWS_F64>(x, y, batch, hp, wp, height, width, t,
+                                      bh, bw, stream);
 }
 
 const char* stencil2d_error_string(int code) {

@@ -7,6 +7,13 @@
 // (launched by ebisu3d_padded).  The function is the same: one sweep of t
 // zero-Dirichlet steps on the padded layout, which holds the zdim x ydim x
 // xdim domain at the origin and zeros outside it, on input and on output.
+// A launch may take a batch of such layouts, one after another in memory
+// (the reference vmaps its kernel over a leading batch axis): blockIdx.z
+// runs over the z chunks of every field, field-major (blockIdx.z =
+// field * nzc + chunk), and a CTA reads and writes its field's layout alone.
+// Memory planes count through the batch (field f's plane z is plane
+// f*zp + z), so a CTA keeps one plane offset, not two moved pointers; an
+// interior CTA keeps no domain plane at all.
 //
 // Taps.  This is a template: it includes stencil3d_taps.cuh, which
 // repro_torch/kernels/stencil3d_gen.py writes for one tap set (offsets,
@@ -93,6 +100,7 @@ struct Geom3 {
   int zdim, ydim, xdim;  // the domain
   int yp, xp;            // padded plane: yp rows of xp cells
   int zc, ty, tx;        // output tile (ty == ydim: y untiled, ...)
+  int zp, nzc;           // planes of one field's padded layout; zp / zc
   int t, halo, span, nbatch;
   int threads;           // threads that compute (the end of level t's)
   int shy, shx;          // level s index i reads level s-1 index i + sh
@@ -130,12 +138,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <typename T, int K, bool EDGE>
 __device__ __forceinline__ void stream_cta(const T* __restrict__ x,
                                            T* __restrict__ y,
-                                           const Geom3& g, T* sm) {
+                                           const Geom3& g, int chunk,
+                                           int field, T* sm) {
   constexpr int R = ST3_RADIUS;
   constexpr int B = ST3_PLANES;
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const int z_base = blockIdx.z * g.zc - g.halo;  // global z of strip plane 0
+  const int z_base = chunk * g.zc - g.halo;  // global z of strip plane 0
+  const int zm_base = z_base + field * g.zp;  // its memory plane
   const int y_tile = blockIdx.y * g.ty;
   const int x_tile = blockIdx.x * g.tx;
   const size_t gplane = static_cast<size_t>(g.yp) * g.xp;
@@ -196,7 +206,7 @@ __device__ __forceinline__ void stream_cta(const T* __restrict__ x,
             if (EDGE) {
               in = z_in && gy >= 0 && gy < g.ydim && gx >= 0 && gx < g.xdim;
             }
-            const T* src = in ? x + static_cast<size_t>(gz) * gplane +
+            const T* src = in ? x + static_cast<size_t>(zm_base + p) * gplane +
                                     static_cast<size_t>(gy) * g.xp + gx
                               : x;
             cp_async<sizeof(T)>(buf + b * plane0 + iy * L0.ex + ix, src,
@@ -226,7 +236,9 @@ __device__ __forceinline__ void stream_cta(const T* __restrict__ x,
         out_ok[b] = p_out >= s * R && p_out < g.span - s * R;
         const int gz = z_base + p_out;
         z_in[b] = !EDGE || (gz >= 0 && gz < g.zdim);
-        gz_off[b] = out_ok[b] && last ? static_cast<size_t>(gz) * gplane : 0;
+        gz_off[b] = out_ok[b] && last
+                        ? static_cast<size_t>(zm_base + p_out) * gplane
+                        : 0;
       }
       int iy = iys, ix = ixs;
 #pragma unroll
@@ -291,17 +303,19 @@ __global__ void __launch_bounds__(ST3_THREADS, 1)
                     const __grid_constant__ Geom3 g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  const int chunk = static_cast<int>(blockIdx.z) % g.nzc;
+  const int field = static_cast<int>(blockIdx.z) / g.nzc;
   const Level3& L0 = g.lv[0];
-  const int z_base = blockIdx.z * g.zc - g.halo;
+  const int z_base = chunk * g.zc - g.halo;
   const int gy = blockIdx.y * g.ty + L0.oy + L0.y_lo;
   const int gx = blockIdx.x * g.tx + L0.ox + L0.x_lo;
   const bool interior = z_base >= 0 && z_base + g.span <= g.zdim &&
                         gy >= 0 && gy + L0.ny <= g.ydim && gx >= 0 &&
                         gx + L0.nx <= g.xdim;
   if (interior) {
-    stream_cta<T, K, false>(x, y, g, sm);
+    stream_cta<T, K, false>(x, y, g, chunk, field, sm);
   } else {
-    stream_cta<T, K, true>(x, y, g, sm);
+    stream_cta<T, K, true>(x, y, g, chunk, field, sm);
   }
 }
 
@@ -359,9 +373,9 @@ static int plan_launch(int itemsize, int slots, int zdim, int ydim, int xdim,
 }
 
 template <typename T, int K>
-static int launch(const T* x, T* y, int zp, int yp, int xp, int zdim,
-                  int ydim, int xdim, int t, int zc, int ty, int tx, int k,
-                  void* stream) {
+static int launch(const T* x, T* y, int batch, int zp, int yp, int xp,
+                  int zdim, int ydim, int xdim, int t, int zc, int ty, int tx,
+                  int k, void* stream) {
   Geom3 g;
   int block = 0;
   size_t smem = 0;
@@ -370,16 +384,19 @@ static int launch(const T* x, T* y, int zp, int yp, int xp, int zdim,
   if (err != 0) return err;
   g.yp = yp;
   g.xp = xp;
+  g.zp = zp;
+  g.nzc = zp / zc;
   // the padded layout: z and tiled axes whole tiles, untiled axes the domain
-  if (zp % zc != 0 || zp < zdim ||
+  if (batch < 1 || zp % zc != 0 || zp < zdim ||
       (g.ty < ydim ? yp % g.ty != 0 || yp < ydim : yp != ydim) ||
       (g.tx < xdim ? xp % g.tx != 0 || xp < xdim : xp != xdim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(xp / g.tx, yp / g.ty, zp / zc);
-  if (smem > 0x7fffffff || grid.y > 65535 || grid.z > 65535) {
+  const long long zgrid = static_cast<long long>(g.nzc) * batch;
+  if (smem > 0x7fffffff || yp / g.ty > 65535 || zgrid > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const dim3 grid(xp / g.tx, yp / g.ty, static_cast<unsigned>(zgrid));
   cudaError_t e = cudaFuncSetAttribute(
       stream3d_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -391,18 +408,20 @@ static int launch(const T* x, T* y, int zp, int yp, int xp, int zdim,
 
 extern "C" {
 
-int stencil3d_f32(const float* x, float* y, int zp, int yp, int xp,
-                  int zdim, int ydim, int xdim, int t, int zc, int ty,
-                  int tx, int k, void* stream) {
-  return launch<float, ST3_SLOTS_F32>(x, y, zp, yp, xp, zdim, ydim, xdim, t,
-                                      zc, ty, tx, k, stream);
+// batch padded layouts of (zp, yp, xp), one after another; batch 1 is one
+// field
+int stencil3d_f32(const float* x, float* y, int batch, int zp, int yp,
+                  int xp, int zdim, int ydim, int xdim, int t, int zc,
+                  int ty, int tx, int k, void* stream) {
+  return launch<float, ST3_SLOTS_F32>(x, y, batch, zp, yp, xp, zdim, ydim,
+                                      xdim, t, zc, ty, tx, k, stream);
 }
 
-int stencil3d_f64(const double* x, double* y, int zp, int yp, int xp,
-                  int zdim, int ydim, int xdim, int t, int zc, int ty,
-                  int tx, int k, void* stream) {
-  return launch<double, ST3_SLOTS_F64>(x, y, zp, yp, xp, zdim, ydim, xdim,
-                                       t, zc, ty, tx, k, stream);
+int stencil3d_f64(const double* x, double* y, int batch, int zp, int yp,
+                  int xp, int zdim, int ydim, int xdim, int t, int zc,
+                  int ty, int tx, int k, void* stream) {
+  return launch<double, ST3_SLOTS_F64>(x, y, batch, zp, yp, xp, zdim, ydim,
+                                       xdim, t, zc, ty, tx, k, stream);
 }
 
 // The block size and shared memory a launch of k cells a thread would take

@@ -88,6 +88,24 @@ def check_head_dim(hd: int) -> None:
             f"to {MAX_HEAD_DIM}; got {hd}")
 
 
+def launch_refusal(head_dim: int, dtype: torch.dtype) -> str | None:
+    """Why the CUDA flash kernels refuse ``head_dim`` or ``dtype`` (what
+    their launch would raise), or ``None`` where the forward and the
+    backward kernels both launch: the limits of :func:`check_head_dim`
+    and the dtypes the route tables (``_FWD_ROUTES``, ``_BWD_ROUTES``)
+    hold."""
+    try:
+        check_head_dim(head_dim)
+    except ValueError as e:
+        return str(e)
+    routes = [d for d in _FWD_ROUTES if d in _BWD_ROUTES]
+    if dtype not in routes:
+        return (f"the CUDA flash kernels read "
+                f"{' or '.join(str(d).removeprefix('torch.') for d in routes)}"
+                f" q, k and v; got {str(dtype).removeprefix('torch.')}")
+    return None
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(

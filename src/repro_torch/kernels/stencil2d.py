@@ -7,6 +7,8 @@ Counterpart of the reference's Pallas strip kernel
 padded layout: ``xp`` is ``(hp, wp)`` with the ``height × width`` domain
 at the origin and zeros outside it; the result is ``t`` zero-Dirichlet
 steps of the tap set, in the same layout, again zero outside the domain.
+A leading batch axis ``(B, hp, wp)`` holds ``B`` independent fields, all
+swept by one launch (the reference vmaps its kernel over it).
 
   * On a CUDA tensor, :func:`ebisu2d_padded` launches the kernel (or
     raises) and adds one to ``ebisu2d_padded.launches``.
@@ -43,8 +45,11 @@ from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.kernels import _build, stencil2d_gen
 from repro_torch.kernels.taps import engine_for, split_star
 
-MAX_TAPS = 128          # the most taps a tap-set library is built for
 MAX_RADIUS = 8
+# the most taps a tap-set library is built for: the whole box of the
+# largest radius, so every set that validate_spec accepts
+MAX_TAPS = (2 * MAX_RADIUS + 1) ** 2
+MAX_BATCH = 65535       # fields a launch takes: the grid's z extent
 
 
 def strip_geometry(spec: StencilSpec, t: int, bh: int,
@@ -83,7 +88,7 @@ def tile_schedule(spec: StencilSpec, t: int, bh: int, bw: int,
     bh, bw, halo = strip_geometry(spec, t, bh, bw)
     hp, wp = padded_shape_2d(spec, t, bh, bw, height, width)
     ry, rx = axis_reach(spec, 0), axis_reach(spec, 1)
-    r = rows_per_thread_2d(spec.radius, itemsize)
+    r = rows_per_thread_2d(spec.radius, itemsize, len(spec.taps))
     column_dys = [{dy for dy, _ in terms}
                   for _, terms in stencil2d_gen.tap_columns(spec.taps)]
     steps = []
@@ -123,8 +128,8 @@ def kernel_taps(taps) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     The single source of the tap order: the header generator
     (``stencil2d_gen.tap_columns``) reads it."""
     if len(taps) > MAX_TAPS:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_TAPS} taps; "
-                         f"this stencil has {len(taps)}")
+        raise ValueError(f"the CUDA 2-D kernel takes at most {MAX_TAPS} "
+                         f"taps (MAX_TAPS); this stencil has {len(taps)}")
     rad = max(max(abs(o) for o in off) for off, _ in taps)
     if rad > MAX_RADIUS:
         raise ValueError(f"the CUDA kernel takes radius <= {MAX_RADIUS}; "
@@ -149,10 +154,13 @@ def _check_padded(xp: torch.Tensor, spec: StencilSpec, t: int, height: int,
     if spec.ndim != 2:
         raise ValueError(f"{spec.name} is {spec.ndim}-D; ebisu2d_padded "
                          "takes 2-D stencils")
-    if xp.dim() != 2:
-        raise ValueError(f"padded field must be 2-D, got shape "
-                         f"{tuple(xp.shape)}")
-    hp, wp = xp.shape
+    if xp.dim() not in (2, 3):
+        raise ValueError(f"padded field must be 2-D, or 2-D with a leading "
+                         f"batch axis, got shape {tuple(xp.shape)}")
+    if xp.dim() == 3 and not 1 <= xp.shape[0] <= MAX_BATCH:
+        raise ValueError(f"a launch takes 1 to {MAX_BATCH} fields; the "
+                         f"batch axis holds {xp.shape[0]}")
+    hp, wp = xp.shape[-2:]
     if hp % bh or wp % bw or height > hp or width > wp:
         raise ValueError(
             f"padded shape {(hp, wp)} must be a multiple of the tile "
@@ -163,8 +171,9 @@ def _check_padded(xp: torch.Tensor, spec: StencilSpec, t: int, height: int,
 def ebisu2d_padded_plain(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                          height: int, width: int) -> torch.Tensor:
     """The plain version of one sweep: ``t`` masked steps of the tap
-    engine over the whole padded array (any device)."""
-    mask = torch.zeros(xp.shape, dtype=xp.dtype, device=xp.device)
+    engine over the whole padded array, and each field of a leading batch
+    axis (any device)."""
+    mask = torch.zeros(xp.shape[-2:], dtype=xp.dtype, device=xp.device)
     mask[:height, :width] = 1
     return engine_for(spec.taps, 2).chain(xp * mask, t, mask)
 
@@ -172,10 +181,10 @@ def ebisu2d_padded_plain(xp: torch.Tensor, spec: StencilSpec, t: int, *,
 def ebisu2d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                    height: int, width: int, bh: int, bw: int,
                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """One sweep of ``t`` steps on the padded layout (see the module
-    docstring); writes into ``out`` when given (it must not alias
-    ``xp``).  CUDA tensors go to the kernel, CPU tensors to the plain
-    version."""
+    """One sweep of ``t`` steps on the padded layout, or on each field
+    of a batch of them (see the module docstring), in one launch; writes
+    into ``out`` when given (it must not alias ``xp``).  CUDA tensors go
+    to the kernel, CPU tensors to the plain version."""
     bh, bw, _ = strip_geometry(spec, t, bh, bw)
     _check_padded(xp, spec, t, height, width, bh, bw)
     if out is None:
@@ -198,7 +207,7 @@ def ebisu2d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
 ebisu2d_padded.launches = 0
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
     ctypes.c_void_p]
 
 
@@ -239,16 +248,17 @@ def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
         raise ValueError("out must not alias xp: CTAs read xp while others "
                          "write out")
     fns, error_string = _entry_points(tapset_header(spec))
-    hp, wp = xp.shape
+    hp, wp = xp.shape[-2:]
+    batch = xp.shape[0] if xp.dim() == 3 else 1
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fns[xp.dtype](xp.data_ptr(), out.data_ptr(), hp, wp, height,
-                            width, t, bh, bw, stream)
+        err = fns[xp.dtype](xp.data_ptr(), out.data_ptr(), batch, hp, wp,
+                            height, width, t, bh, bw, stream)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(
             f"stencil2d launch failed ({msg}): {spec.name} t={t} tile "
-            f"({bh}, {bw}) padded {(hp, wp)} {xp.dtype}")
+            f"({bh}, {bw}) padded {tuple(xp.shape)} {xp.dtype}")
 
 
 def ebisu2d(x: torch.Tensor, spec: StencilSpec, t: int, *, bh: int,

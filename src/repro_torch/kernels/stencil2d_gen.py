@@ -51,8 +51,8 @@ def header(taps) -> str:
         f"{max(abs(y) for _, terms in columns for y, _ in terms)}",
         f"#define ST2_REACH_X {max(abs(x) for x, _ in columns)}",
         f"#define ST2_NTAPS {sum(len(terms) for _, terms in columns)}",
-        f"#define ST2_ROWS_F32 {rows_per_thread_2d(rad, 4)}",
-        f"#define ST2_ROWS_F64 {rows_per_thread_2d(rad, 8)}",
+        f"#define ST2_ROWS_F32 {rows_per_thread_2d(rad, 4, len(taps))}",
+        f"#define ST2_ROWS_F64 {rows_per_thread_2d(rad, 8, len(taps))}",
         f"#define ST2_THREADS {THREADS}",
         "// COLUMN(dx, terms) for each column offset; terms are",
         "// TAP(dy, coefficient) in kernel_taps order.",

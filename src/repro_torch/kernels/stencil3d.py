@@ -7,7 +7,9 @@ Counterpart of the reference's Pallas streaming kernel
 padded layout: ``xp`` is ``(zp, yp, xp)`` with the ``zdim × ydim × xdim``
 domain at the origin and zeros outside it; the result is ``t``
 zero-Dirichlet steps of the tap set, in the same layout, again zero
-outside the domain.
+outside the domain.  A leading batch axis ``(B, zp, yp, xp)`` holds ``B``
+independent fields, all swept by one launch (the reference vmaps its
+kernel over it).
 
   * On a CUDA tensor, :func:`ebisu3d_padded` launches the kernel (or
     raises) and adds one to ``ebisu3d_padded.launches``.
@@ -44,8 +46,13 @@ from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.kernels import _build, stencil3d_gen
 from repro_torch.kernels.taps import engine_for, split_star
 
-MAX_TAPS = 128          # the most taps a tap-set library is built for
 MAX_RADIUS = 8
+# the most taps a tap-set library is built for: the whole box of the
+# largest radius, so every set that validate_spec accepts (dense sets of
+# 343 to 4913 taps at radius 3-8 build with no spill or stack frame:
+# python -m repro_torch.launch.stencil_registers --taps 343 4913)
+MAX_TAPS = (2 * MAX_RADIUS + 1) ** 3
+MAX_GRID_Z = 65535      # z chunks of a launch, over all fields of a batch
 
 
 def chunk_geometry(spec: StencilSpec, t: int, zc: int) -> tuple[int, int]:
@@ -119,8 +126,8 @@ def kernel_taps(taps) -> tuple[np.ndarray, ...]:
     order.  The single source of the tap order: the header generator
     (``stencil3d_gen.tap_groups``) reads it."""
     if len(taps) > MAX_TAPS:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_TAPS} taps; "
-                         f"this stencil has {len(taps)}")
+        raise ValueError(f"the CUDA 3-D kernel takes at most {MAX_TAPS} "
+                         f"taps (MAX_TAPS); this stencil has {len(taps)}")
     rad = max(max(abs(o) for o in off) for off, _ in taps)
     if rad > MAX_RADIUS:
         raise ValueError(f"the CUDA kernel takes radius <= {MAX_RADIUS}; "
@@ -143,18 +150,27 @@ def kernel_taps(taps) -> tuple[np.ndarray, ...]:
 
 def _check_padded(xp: torch.Tensor, shape: tuple[int, int, int],
                   geom: dict) -> None:
-    if tuple(xp.shape) != geom["padded"]:
+    if xp.dim() not in (3, 4) or tuple(xp.shape[-3:]) != geom["padded"]:
         raise ValueError(
             f"padded shape {tuple(xp.shape)} is not the layout "
             f"{geom['padded']} of the {shape} domain at tile "
-            f"{geom['block']} (see padded_shape_3d)")
+            f"{geom['block']} (see padded_shape_3d), with or without a "
+            "leading batch axis")
+    if xp.dim() == 4:
+        chunks = geom["grid"][0] * xp.shape[0]
+        if xp.shape[0] < 1 or chunks > MAX_GRID_Z:
+            raise ValueError(
+                f"a launch takes at most {MAX_GRID_Z} z chunks over the "
+                f"batch; {xp.shape[0]} fields of {geom['grid'][0]} chunks "
+                f"make {chunks}")
 
 
 def ebisu3d_padded_plain(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                          zdim: int, ydim: int, xdim: int) -> torch.Tensor:
     """The plain version of one sweep: ``t`` masked steps of the tap
-    engine over the whole padded array (any device)."""
-    mask = torch.zeros(xp.shape, dtype=xp.dtype, device=xp.device)
+    engine over the whole padded array, and each field of a leading batch
+    axis (any device)."""
+    mask = torch.zeros(xp.shape[-3:], dtype=xp.dtype, device=xp.device)
     mask[:zdim, :ydim, :xdim] = 1
     return engine_for(spec.taps, 3).chain(xp * mask, t, mask)
 
@@ -163,10 +179,10 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                    zdim: int, ydim: int, xdim: int, zc: int,
                    ty: int | None = None, tx: int | None = None,
                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """One sweep of ``t`` steps on the padded layout (see the module
-    docstring); writes into ``out`` when given (it must not alias
-    ``xp``).  CUDA tensors go to the kernel, CPU tensors to the plain
-    version."""
+    """One sweep of ``t`` steps on the padded layout, or on each field
+    of a batch of them (see the module docstring), in one launch; writes
+    into ``out`` when given (it must not alias ``xp``).  CUDA tensors go
+    to the kernel, CPU tensors to the plain version."""
     if spec.ndim != 3:
         raise ValueError(f"{spec.name} is {spec.ndim}-D; ebisu3d_padded "
                          "takes 3-D stencils (lift a 2-D one with "
@@ -195,7 +211,7 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
 ebisu3d_padded.launches = 0
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 11 + [
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 12 + [
     ctypes.c_void_p]
 
 
@@ -247,17 +263,19 @@ def _launch(xp: torch.Tensor, out: torch.Tensor, spec: StencilSpec, t: int,
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     zc, ty, tx = geom["block"]
+    batch = xp.shape[0] if xp.dim() == 4 else 1
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = fn(xp.data_ptr(), out.data_ptr(), *geom["padded"], *shape, t,
-                 zc, ty, tx, geom["cells_per_thread"] or 0, stream)
+        err = fn(xp.data_ptr(), out.data_ptr(), batch, *geom["padded"],
+                 *shape, t, zc, ty, tx, geom["cells_per_thread"] or 0,
+                 stream)
     if err != 0:
         lib.stencil3d_error_string.restype = ctypes.c_char_p
         lib.stencil3d_error_string.argtypes = [ctypes.c_int]
         msg = lib.stencil3d_error_string(err).decode()
         raise RuntimeError(
             f"stencil3d launch failed ({msg}): {spec.name} t={t} tile "
-            f"{geom['block']} padded {geom['padded']} {xp.dtype}")
+            f"{geom['block']} padded {tuple(xp.shape)} {xp.dtype}")
 
 
 def ebisu3d(x: torch.Tensor, spec: StencilSpec, t: int, *, zc: int,

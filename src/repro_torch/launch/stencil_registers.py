@@ -1,11 +1,13 @@
 """ptxas's report of the stencil kernels' tap-set libraries across radii:
 the registers, spill-store bytes and stack-frame bytes of each
 instantiation (f32 and f64) for a star and a dense 128-tap set at every
-radius 1–8.
+radius 1–8, or dense sets of other sizes (``--taps``).
 
-    python -m repro_torch.launch.stencil3d_registers
-    python -m repro_torch.launch.stencil3d_registers --regs 64 56 48 40 32
-    python -m repro_torch.launch.stencil3d_registers --ndim 2 [--rows 8 16]
+    python -m repro_torch.launch.stencil_registers
+    python -m repro_torch.launch.stencil_registers --regs 64 56 48 40 32
+    python -m repro_torch.launch.stencil_registers --ndim 2 [--rows 8 16]
+    python -m repro_torch.launch.stencil_registers --taps 343 729 \
+        --radii 3 4 8
 
 For the 3-D template (``csrc/stencil3d.cu``, the default) ``--regs``
 sets the registers of z partial sums a thread may hold
@@ -13,7 +15,9 @@ sets the registers of z partial sums a thread may hold
 each line gives the tap set, its radius, the budget, the cells a thread
 in f32 and f64.  For the 2-D template (``csrc/stencil2d.cu``, ``--ndim
 2``) ``--rows`` sets the rows a thread computes (``R``,
-``planner.rows_per_thread_2d``).  Each line also gives the build's
+``planner.rows_per_thread_2d``).  ``--taps`` builds a dense set of
+each given size per radius (the whole box where it has fewer taps), in
+place of the star and the 128-tap set.  Each line also gives the build's
 seconds and ptxas's ``[registers, spill stores, stack frame]`` per
 instantiation.  It needs ``nvcc`` (it builds the libraries, in parallel,
 into ``kernels/_build/``) and launches nothing.  The card tests build the
@@ -52,18 +56,30 @@ def dense_spec(radius: int, n: int = 128, seed: int = 0,
     rest = [o for o in itertools.product(r, repeat=ndim) if o not in ends]
     pick = ends + [rest[i] for i in
                    rng.permutation(len(rest))[:n - len(ends)]]
+    size = "" if n == 128 else f"-{len(pick)}t"
     return define_stencil([(o, 1.0 + 0.01 * i) for i, o in enumerate(pick)],
-                          name=f"dense-{_PREFIX[ndim]}r{radius}",
+                          name=f"dense-{_PREFIX[ndim]}r{radius}{size}",
                           normalize=True)
 
 
-def probe_specs(radii=range(1, 9), ndim: int = 3) -> list[StencilSpec]:
-    """A star and a dense set (:func:`dense_spec`) at each radius."""
-    return [spec for rad in radii
-            for spec in (define_stencil(star_taps(ndim, rad),
-                                        name=f"star-{_PREFIX[ndim]}r{rad}",
-                                        normalize=True),
-                         dense_spec(rad, ndim=ndim))]
+def probe_specs(radii=range(1, 9), ndim: int = 3,
+                taps=None) -> list[StencilSpec]:
+    """A star and a dense set (:func:`dense_spec`) at each radius; or,
+    with ``taps``, a dense set of each of those sizes at each radius
+    (one set where the box has fewer taps than several sizes)."""
+    if taps is None:
+        return [spec for rad in radii
+                for spec in (define_stencil(star_taps(ndim, rad),
+                                            name=f"star-{_PREFIX[ndim]}"
+                                                 f"r{rad}",
+                                            normalize=True),
+                             dense_spec(rad, ndim=ndim))]
+    out = []
+    for rad in radii:
+        box = (2 * rad + 1) ** ndim
+        for n in sorted({min(n, box) for n in taps}):
+            out.append(dense_spec(rad, n, ndim=ndim))
+    return out
 
 
 def header_at(spec: StencilSpec, regs: int | None) -> tuple[str, int, int]:
@@ -84,7 +100,8 @@ def header_at_2d(spec: StencilSpec, rows: int | None) -> tuple[str, int,
     """The 2-D tap set's header at ``rows`` rows a thread (the planner's
     ``R`` if ``None``), with the rows in f32 and f64."""
     text = stencil2d_gen.header(tuple(spec.taps))
-    r = [rows_per_thread_2d(spec.radius, size) if rows is None else rows
+    r = [rows_per_thread_2d(spec.radius, size, len(spec.taps))
+         if rows is None else rows
          for size in (4, 8)]
     for name, n in zip(("ST2_ROWS_F32", "ST2_ROWS_F64"), r):
         text = re.sub(rf"#define {name} \d+", f"#define {name} {n}", text)
@@ -101,13 +118,18 @@ def main(argv=None) -> None:
     ap.add_argument("--rows", type=int, nargs="*", default=[None],
                     help="2-D: rows a thread computes (default: the "
                          "planner's R)")
+    ap.add_argument("--taps", type=int, nargs="+", default=None,
+                    help="dense sets of these sizes, in place of a star "
+                         "and a 128-tap set per radius")
+    ap.add_argument("--radii", type=int, nargs="+", default=range(1, 9),
+                    help="the radii to probe (default 1-8)")
     args = ap.parse_args(argv)
     name = "stencil3d" if args.ndim == 3 else "stencil2d"
     at = header_at if args.ndim == 3 else header_at_2d
     knob = "regs" if args.ndim == 3 else "rows"
     per = "k" if args.ndim == 3 else "rows"
     jobs, seen = [], set()
-    for spec in probe_specs(ndim=args.ndim):
+    for spec in probe_specs(args.radii, args.ndim, args.taps):
         for value in getattr(args, knob):
             text, n32, n64 = at(spec, value)
             if text not in seen:

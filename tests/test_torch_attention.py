@@ -372,3 +372,49 @@ def test_attention_bound_copies_reference_traffic_and_counts_the_mask():
     assert b["bytes"] == 419_430_400
     assert b["bound_by"] == "operations"
     assert abs(b["bound_ms"] - 1.0423) < 1e-4
+
+
+CUDA = torch.device("cuda", 0)      # resolution reads the device, no card
+REFUSED = [(72, torch.float32, "multiples of 16"),
+           (8, torch.float32, "multiples of 16"),
+           (64, torch.float16, "float16"),
+           (64, torch.float64, "float64"),
+           (320, torch.bfloat16, "up to 256")]
+
+
+@pytest.mark.parametrize("hd,dtype,limit", REFUSED,
+                         ids=[f"{hd}-{str(d)[6:]}" for hd, d, _ in REFUSED])
+def test_auto_takes_chunked_where_the_kernel_refuses(hd, dtype, limit):
+    """``impl="auto"`` on a CUDA tensor takes the kernel only where it
+    launches: a head_dim the kernels take and a dtype with a route (the
+    kernel module's own ``check_head_dim`` and route tables, read through
+    ``launch_refusal``).  Otherwise it takes ``"chunked"``, as the
+    reference's "auto" promises; an explicit ``"cuda"`` refuses and names
+    the limit it hit."""
+    kw = dict(heads=4, kv_heads=2, head_dim=hd, dtype=dtype)
+    auto = tapi.compile_attention(impl="auto", **kw)
+    assert auto._resolve_impl(128, 128, CUDA) == "chunked"
+    assert auto._resolve_impl(128, 128, torch.device("cpu")) == "chunked"
+    with pytest.raises(ValueError, match=limit) as got:
+        tapi.compile_attention(impl="cuda", **kw)._resolve_impl(128, 128,
+                                                                CUDA)
+    assert "impl='chunked'" in str(got.value)
+    assert limit in tfa.launch_refusal(hd, dtype)
+    # on the CPU the kernels' wrappers run their plain versions: no refusal
+    assert tapi.compile_attention(impl="cuda", **kw)._resolve_impl(
+        128, 128, torch.device("cpu")) == "cuda"
+
+
+@pytest.mark.parametrize("hd,dtype", [(16, torch.float32),
+                                      (80, torch.bfloat16),
+                                      (256, torch.bfloat16)])
+def test_auto_takes_the_kernel_where_it_launches(hd, dtype):
+    """The control: a head_dim and dtype both kernels take resolve to the
+    kernel on a CUDA tensor; undivisible sequences still do not."""
+    assert tfa.launch_refusal(hd, dtype) is None
+    auto = tapi.compile_attention(heads=4, kv_heads=2, head_dim=hd,
+                                  dtype=dtype, q_chunk=64, kv_chunk=64)
+    assert auto._resolve_impl(128, 128, CUDA) == "cuda"
+    assert auto._resolve_impl(96, 96, CUDA) == "chunked"
+    assert set(tfa._FWD_ROUTES) == set(tfa._BWD_ROUTES) == set(
+        tfa._DTYPE_CODE)

@@ -19,7 +19,7 @@ from repro_torch.core import stencil_spec as tspec
 from repro_torch.kernels import ref
 from repro_torch.kernels import stencil2d as st
 from repro_torch.kernels import stencil3d as st3
-from repro_torch.launch.stencil3d_registers import dense_spec, probe_specs
+from repro_torch.launch.stencil_registers import dense_spec, probe_specs
 
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
 BOUNDARIES = [Boundary.dirichlet(0.0), Boundary.dirichlet(0.7),
@@ -448,6 +448,203 @@ def test_stream_apply_matches_oracle(cuda_device, name):
     assert st3.ebisu3d_padded.launches == before + 1
     torch.testing.assert_close(y, ref.reference(x, prog.spec, 4),
                                atol=2e-5, rtol=2e-5)
+
+
+# ------------------------ batches, the padded carry, large tap sets ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("j2d5pt", (300, 200)),
+                                        ("j2d25pt", (130, 170)),
+                                        ("j3d7pt", (40, 36, 70)),
+                                        ("j3d27pt", (30, 26, 40))])
+@pytest.mark.parametrize("boundary", [Boundary.dirichlet(0.0),
+                                      Boundary.periodic()], ids=repr)
+def test_run_batched_is_one_launch_a_sweep_and_equals_a_loop(
+        cuda_device, name, shape, boundary):
+    """A batch of three fields: one kernel launch per sweep for the whole
+    batch (sweeps of 4, 4 and 1), bit for bit the loop of ``.run``, and
+    the oracle within 2e-5."""
+    spec = tspec.get(name)
+    wrapper = (st.ebisu2d_padded if spec.ndim == 2
+               else st3.ebisu3d_padded)
+    prog = compile_stencil(spec, shape, t=4, boundary=boundary)
+    xs = torch.stack([field(shape, seed=i) for i in range(3)]).to(
+        cuda_device)
+    before = wrapper.launches
+    ys = prog.run_batched(xs, 9)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 3
+    loop = torch.stack([prog.run(x, 9) for x in xs])
+    assert torch.equal(ys, loop)
+    for i, x in enumerate(xs):
+        torch.testing.assert_close(
+            ys[i], ref.reference(x, spec, 9, boundary=boundary),
+            atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_take_a_batch_in_their_grid(cuda_device):
+    """The wrappers' batch axis on the kernels directly: each field of a
+    launch equals its own launch bit for bit, edge CTAs included; the
+    3-D kernel folds the fields into its grid's z."""
+    spec = tspec.get("j2d9pt")
+    hp, wp = st.padded_shape_2d(spec, 3, 16, 32, 70, 90)
+    xs = torch.stack([field((hp, wp), seed=i) for i in range(5)]).to(
+        cuda_device)
+    kw = dict(height=70, width=90, bh=16, bw=32)
+    got = st.ebisu2d_padded(xs, spec, 3, **kw)
+    for i in range(5):
+        assert torch.equal(got[i], st.ebisu2d_padded(xs[i], spec, 3, **kw))
+    spec3 = tspec.get("j3d13pt")
+    g = st3.launch_geometry_3d(spec3, 2, (19, 13, 21), zc=5, ty=4, tx=8)
+    xs3 = torch.stack([field(g["padded"], seed=i) for i in range(4)]).to(
+        cuda_device)
+    kw3 = dict(zdim=19, ydim=13, xdim=21, zc=5, ty=4, tx=8)
+    got3 = st3.ebisu3d_padded(xs3, spec3, 2, **kw3)
+    for i in range(4):
+        assert torch.equal(got3[i], st3.ebisu3d_padded(xs3[i], spec3, 2,
+                                                       **kw3))
+        torch.testing.assert_close(
+            got3[i], st3.ebisu3d_padded_plain(xs3[i], spec3, 2,
+                                              **{k: kw3[k] for k in
+                                                 ("zdim", "ydim", "xdim")}),
+            atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_run_padded_on_card_equals_run(cuda_device, dtype):
+    prog = compile_stencil(tspec.get("j2d5pt"), (300, 200), t=4,
+                           dtype=dtype)
+    x = field((300, 200)).to(device=cuda_device, dtype=dtype)
+    xp = torch.zeros(prog.padded_shape, dtype=dtype, device=cuda_device)
+    xp[:300, :200] = x
+    before = st.ebisu2d_padded.launches
+    out = prog.run_padded(xp, 12)
+    torch.cuda.synchronize()
+    assert st.ebisu2d_padded.launches == before + 3
+    assert torch.equal(out[:300, :200], prog.run(x, 12))
+    assert not out[300:].any() and not out[:, 200:].any()
+
+
+def large_sets():
+    """The sets past the 128 taps of earlier libraries: 169 and 289 taps
+    in 2-D, 343 in 3-D."""
+    from repro_torch.api.define import blur, box
+
+    return {"box2d-r6": box(2, radius=6), "blur2d-r8": blur(2, radius=8),
+            "box3d-r3": box(3, radius=3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box2d-r6", "blur2d-r8", "box3d-r3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_large_tap_sets_run_on_the_card(cuda_device, name, dtype):
+    """``compile_stencil(...).run`` of each large set on a CUDA tensor
+    (the launches that refused them before), held to the oracle; the
+    kernel against its plain version and a second launch bit for bit."""
+    spec = large_sets()[name]
+    shape = (150, 170) if spec.ndim == 2 else (24, 30, 40)
+    prog = compile_stencil(spec, shape, t=2, dtype=dtype)
+    x = field(shape).to(device=cuda_device, dtype=dtype)
+    y = prog.run(x, 5)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(y, ref.reference(x, spec, 5), atol=tol,
+                               rtol=tol)
+    g = prog.geometry()
+    if spec.ndim == 2:
+        kernel_vs_plain_2d(spec, dtype, shape, 2, *g["block"], cuda_device,
+                           dirty=True)
+    else:
+        kernel_vs_plain_3d(spec, dtype, shape, 2, *g["block"], cuda_device)
+
+
+@pytest.mark.cuda
+def test_large_tap_set_builds_have_no_spills(cuda_device):
+    """ptxas's report of the large sets and of dense sets at the caps (169,
+    225 and 289 taps at radius 6–8 in 2-D; 343 taps at radius 3–8 and
+    ``MAX_TAPS`` in 3-D), built in parallel: no instantiation stores a
+    spill or keeps a stack frame."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+
+    jobs = [("stencil2d", st.tapset_header(s)) for s in (
+        [large_sets()["box2d-r6"], large_sets()["blur2d-r8"]]
+        + probe_specs(range(6, 9), 2, [289]))]
+    jobs += [("stencil3d", st3.tapset_header(s)) for s in (
+        [large_sets()["box3d-r3"]]
+        + probe_specs(range(3, 9), 3, [343, st3.MAX_TAPS]))]
+    jobs = list(dict.fromkeys(jobs))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: _build.build(*job), jobs))
+    for job in jobs:
+        frames = _build.ptxas_frames(_build.build_log(*job))
+        assert len(frames) == 2, (job[0], frames)
+        for kernel, (regs, spill, stack) in frames.items():
+            assert spill == 0 and stack == 0, (kernel, spill, stack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(72, torch.float32),
+                                      (64, torch.float16),
+                                      (320, torch.bfloat16)])
+def test_auto_attention_takes_chunked_where_the_kernel_refuses(
+        cuda_device, hd, dtype):
+    """``impl="auto"`` on CUDA tensors with a head_dim or dtype the
+    kernels refuse runs the chunked path (no kernel launch) and matches
+    the dense oracle."""
+    from repro_torch.api import compile_attention
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import dense_attention
+
+    q, k, v = qkv(2, 128, 4, 2, hd, dtype, cuda_device)
+    prog = compile_attention(heads=4, kv_heads=2, head_dim=hd, dtype=dtype,
+                             q_chunk=64, kv_chunk=64)
+    before = fa.flash_attention_fwd.launches
+    out = prog.apply(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before
+    want = dense_attention(q.float(), k.float(), v.float())
+    tol = 2e-5 if dtype == torch.float32 else 0.06
+    torch.testing.assert_close(out.float(), want, atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="cannot launch"):
+        compile_attention(heads=4, kv_heads=2, head_dim=hd, dtype=dtype,
+                          q_chunk=64, kv_chunk=64, impl="cuda").apply(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gray-scott", "fdtd-acoustic",
+                                  "advection-diffusion"])
+def test_systems_on_card_match_cpu_f64(cuda_device, name):
+    """A coupled system on CUDA fields stays on the card, launches no
+    stencil kernel, and matches the same program on the CPU in float64;
+    ``run_batched`` equals a loop of ``.run`` there."""
+    from repro_torch.systems import compile_system, get_system
+
+    spec = get_system(name)
+    rng = np.random.default_rng(1)
+    arrs = {f: rng.uniform(0.2, 0.8, (2, 96, 80)).astype(np.float32)
+            for f in spec.fields}
+    for boundary in (Boundary.periodic(), Boundary.neumann(),
+                     Boundary.dirichlet(0.3)):
+        prog = compile_system(spec, (96, 80), t=4, boundary=boundary)
+        before = (st.ebisu2d_padded.launches, st3.ebisu3d_padded.launches)
+        got = prog.run_batched({f: torch.from_numpy(v).to(cuda_device)
+                                for f, v in arrs.items()}, 9)
+        assert (st.ebisu2d_padded.launches,
+                st3.ebisu3d_padded.launches) == before
+        cpu = compile_system(spec, (96, 80), t=4, boundary=boundary,
+                             dtype=torch.float64)
+        for i in range(2):
+            one = prog.run({f: torch.from_numpy(v[i]).to(cuda_device)
+                            for f, v in arrs.items()}, 9)
+            want = cpu.run({f: torch.from_numpy(v[i]).double()
+                            for f, v in arrs.items()}, 9)
+            for f in spec.fields:
+                assert got[f].device.type == "cuda"
+                assert torch.equal(got[f][i], one[f])
+                torch.testing.assert_close(got[f][i].cpu().double(),
+                                           want[f], atol=1e-4, rtol=1e-4)
 
 
 # ------------------------------------------------------- flash attention ----

@@ -36,6 +36,16 @@ BOUNDARIES = {
 SHAPE = (19, 13, 21)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Tiny tensors: torch's default intra-op threads only oversubscribe
+    the CPU the other test workers share."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def field(shape=SHAPE, seed=0):
     return np.random.default_rng(seed).random(shape, dtype=np.float32)
 
@@ -221,3 +231,21 @@ def test_cli_3d_on_cpu(capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert [line.split()[1] for line in out] == ["j3d7pt", "poisson"]
     assert all("maxerr=" in line for line in out)
+
+
+def test_large_tap_set_runs_like_the_reference():
+    """The 343-tap box of radius 3 through ``compile_stencil(...).run``,
+    against the reference's own ``compile_stencil(...).run`` (Pallas
+    interpret mode) within 2e-5; a remainder sweep included."""
+    from repro.api import define as ref_define
+    from repro_torch.api import define as tdefine
+
+    spec, rspec = tdefine.box(3, radius=3), ref_define.box(3, radius=3)
+    shape = (12, 10, 14)
+    x = np.random.default_rng(3).random(shape, dtype=np.float32)
+    got = compile_stencil(spec, shape, t=2, device="cpu").run(
+        torch.from_numpy(x), 5)
+    want = jax_compile(rspec, shape, t=2, interpret=True).run(
+        jnp.asarray(x), 5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)

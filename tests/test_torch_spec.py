@@ -106,8 +106,8 @@ def test_json_adapters_match_reference():
     op = {"operator": {"kind": "diffusion", "ndim": 2, "alpha": 0.1}}
     assert (tdefine.spec_from_json(op).signature
             == ref_define.spec_from_json(op).signature)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdefine.spec_from_json({"fields": {}})
+    with pytest.raises(ValueError, match="'fields' and 'couplings'"):
+        tdefine.spec_from_json({"fields": {}})     # a system, item 9
     with pytest.raises(ValueError):
         tdefine.parse_taps('[[0, 1]]')
 
@@ -136,6 +136,46 @@ def test_roofline_copy_matches_reference(name):
             b.bottleneck, b.pp_cells_per_s, b.gflops)
     assert trl.desired_depth(mine, hw) == ref_rl.desired_depth(ref, hw_ref)
     assert trl.min_tile_width(mine, hw) == ref_rl.min_tile_width(ref, hw_ref)
+
+
+def same_hardware(hw_ref):
+    """The port's ``HardwareModel`` holding the reference model's
+    constants (the fields both have)."""
+    return trl.HardwareModel(**{f.name: getattr(hw_ref, f.name)
+                                for f in dataclasses.fields(trl.HardwareModel)
+                                if hasattr(hw_ref, f.name)})
+
+
+CUSTOM = {"asym": [((0, 0), 0.6), ((0, 1), 0.15), ((0, -1), 0.05),
+                   ((1, 0), 0.1), ((-1, 0), 0.1)],
+          "box3": [((0, 0, 0), 2.0), ((1, 1, 1), 1.0), ((-1, 0, 1), 1.0)]}
+
+
+@pytest.mark.parametrize("hw_name", ["A100_FP64", "TPU_V5E"])
+@pytest.mark.parametrize("name", SPECS_2D + ["j3d7pt", "poisson", "asym",
+                                             "box3"])
+def test_cost_summary_and_device_tiled_depth_match_reference(name, hw_name):
+    """``spec_cost_summary`` and ``desired_depth_device_tiled``, copied
+    into the port, equal the reference's given the same constants; the
+    port's default hardware is its H100 model."""
+    hw_ref = getattr(ref_rl, hw_name)
+    hw = same_hardware(hw_ref)
+    if name in CUSTOM:
+        ref = ref_spec.define_stencil(CUSTOM[name], name=name,
+                                      normalize=True, a_sm=9)
+        mine = tspec.define_stencil(CUSTOM[name], name=name,
+                                    normalize=True, a_sm=9)
+    else:
+        ref, mine = ref_spec.get(name), tspec.get(name)
+    assert trl.spec_cost_summary(mine, hw) == ref_rl.spec_cost_summary(
+        ref, hw_ref)
+    for tile in ((128, 128), (64, 512), (8, 8), (4096, 4096)):
+        assert trl.desired_depth_device_tiled(mine, hw, tile) == \
+            ref_rl.desired_depth_device_tiled(ref, hw_ref, tile)
+    assert trl.spec_cost_summary(mine)["arith_intensity"] == (
+        mine.flops_per_cell / (mine.a_gm * trl.H100.s_cell))
+    assert trl.spec_cost_summary(mine)["desired_depth_eq17"] == \
+        trl.desired_depth(mine, trl.H100)
 
 
 @pytest.mark.parametrize("name", SPECS_2D)
@@ -196,6 +236,10 @@ def test_import_gate():
         import repro_torch.train.optimizer, repro_torch.train.data
         import repro_torch.train.train_step, repro_torch.train.checkpoint
         import repro_torch.launch.train
+        import repro_torch.launch.stencil_registers
+        import repro_torch.systems, repro_torch.systems.spec
+        import repro_torch.systems.reactions, repro_torch.systems.library
+        import repro_torch.systems.program
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)

@@ -24,6 +24,8 @@ Tolerances: 1e-6 between the replay and the plain version (the same
 taps, summed in another order), 2e-5 against the reference (its suite's
 own).
 """
+import dataclasses
+import itertools
 import re
 
 import jax.numpy as jnp
@@ -31,16 +33,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import define as ref_define
 from repro.core import stencil_spec as ref_spec
 from repro.kernels import ref as jref
 from repro.kernels import stencil2d as jst
+from repro_torch.api import define as tdefine
 from repro_torch.core import planner as tplanner
 from repro_torch.core import roofline as trl
 from repro_torch.core import stencil_spec as tspec
 from repro_torch.kernels import _build
 from repro_torch.kernels import stencil2d as st
 from repro_torch.kernels import stencil2d_gen as gen
-from repro_torch.launch import stencil3d_registers as regs
+from repro_torch.launch import stencil_registers as regs
 
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
 TOL = 2e-5
@@ -73,81 +77,89 @@ def fma(c: float, v: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     return (c32 * v.double() + acc.double()).float()
 
 
-def emulate_tiles(xp, spec, t, height, width, bh, bw):
+def emulate_tiles(xp, spec, t, height, width, bh, bw, itemsize=4):
     """The CUDA kernel's schedule, replayed CTA by CTA (see the module
     docstring); returns the output and the launch's schedule, whose
-    counts the replay checks."""
+    counts the replay checks.  A leading batch axis of ``xp`` is the
+    grid's z: CTA ``(cz, cy, cx)`` runs the tile ``(cy, cx)`` of field
+    ``cz``, reading and writing that field's layout alone.  ``itemsize``
+    picks the rows a thread computes (float64's ``R`` with 8), the
+    arithmetic staying float32."""
     bh, bw, halo = st.strip_geometry(spec, t, bh, bw)
-    sched = st.tile_schedule(spec, t, bh, bw, height, width)
+    sched = st.tile_schedule(spec, t, bh, bw, height, width, itemsize)
     ry, rx = tplanner.axis_reach(spec, 0), tplanner.axis_reach(spec, 1)
     columns = gen.tap_columns(spec.taps)
-    hp, wp = xp.shape
+    batch = xp.shape[0] if xp.dim() == 3 else 1
+    layout = xp.shape
+    fields = xp.reshape((batch,) + tuple(xp.shape[-2:]))
+    hp, wp = fields.shape[1:]
     sh, sw = bh + 2 * halo, bw + 2 * halo
-    out = torch.full_like(xp, float("nan"))
+    outs = torch.full_like(fields, float("nan"))
     interior_ctas = updates = computed = reads = 0
 
     def inside(rows, cols):
         return (((rows >= 0) & (rows < height))[:, None]
                 & ((cols >= 0) & (cols < width))[None, :])
 
-    for cy in range(hp // bh):
-        for cx in range(wp // bw):
-            r0, c0 = cy * bh - halo, cx * bw - halo
-            ly, lx = halo - t * ry, halo - t * rx
-            rows = torch.arange(r0 + ly, r0 + ly + bh + 2 * t * ry)
-            cols = torch.arange(c0 + lx, c0 + lx + bw + 2 * t * rx)
-            ok = inside(rows, cols)
-            interior = bool(ok.all())
-            interior_ctas += interior
-            bufs = [torch.full((sh, sw), float("nan")) for _ in range(2)]
-            tags = [torch.full((sh, sw), -1) for _ in range(2)]
-            sub = xp[rows.clamp(0, hp - 1)][:, cols.clamp(0, wp - 1)]
-            region = (slice(ly, ly + len(rows)), slice(lx, lx + len(cols)))
-            bufs[0][region] = sub if interior else torch.where(
-                ok, sub, torch.zeros(()))
-            tags[0][region] = 0
-            src = 0
-            for step in sched["steps"]:
-                s, ny, nx, r = (step[k] for k in ("s", "ny", "nx", "rows"))
-                ly, lx = halo - (t - s) * ry, halo - (t - s) * rx
-                nb = -(-ny // r)
-                starts = ly + torch.clamp(torch.arange(nb) * r, max=ny - r)
-                cc = lx + torch.arange(nx)
-                acc = [torch.zeros((nb, nx)) for _ in range(r)]
-                for i in range(r + 2 * ry):
-                    rr = (starts - ry + i)[:, None]
-                    for dx, terms in columns:
-                        used = [(i - ry - dy, c) for dy, c in terms
-                                if 0 <= i - ry - dy < r]
-                        if not used:
-                            continue
-                        at = (rr, (cc + dx)[None, :])
-                        assert (tags[src][at] == s - 1).all(), (s, i, dx)
-                        v = bufs[src][at]
-                        reads += v.numel()
-                        for j, c in used:
-                            acc[j] = fma(c, v, acc[j])
-                dst = 1 - src
-                for j in range(r):
-                    rj = starts + j
-                    o = acc[j]
-                    if not interior:
-                        o = torch.where(inside(r0 + rj, c0 + cc), o,
-                                        torch.zeros(()))
-                    if s < t:
-                        bufs[dst][rj[:, None], cc[None, :]] = o
-                        tags[dst][rj[:, None], cc[None, :]] = s
-                    else:
-                        out[(r0 + rj)[:, None], (c0 + cc)[None, :]] = o
-                updates += ny * nx
-                computed += nb * r * nx
-                src = dst
-    assert not out.isnan().any()            # every cell of the layout
-    assert interior_ctas == sched["interior_ctas"]
+    for cz, cy, cx in itertools.product(range(batch), range(hp // bh),
+                                        range(wp // bw)):
+        xp, out = fields[cz], outs[cz]
+        r0, c0 = cy * bh - halo, cx * bw - halo
+        ly, lx = halo - t * ry, halo - t * rx
+        rows = torch.arange(r0 + ly, r0 + ly + bh + 2 * t * ry)
+        cols = torch.arange(c0 + lx, c0 + lx + bw + 2 * t * rx)
+        ok = inside(rows, cols)
+        interior = bool(ok.all())
+        interior_ctas += interior
+        bufs = [torch.full((sh, sw), float("nan")) for _ in range(2)]
+        tags = [torch.full((sh, sw), -1) for _ in range(2)]
+        sub = xp[rows.clamp(0, hp - 1)][:, cols.clamp(0, wp - 1)]
+        region = (slice(ly, ly + len(rows)), slice(lx, lx + len(cols)))
+        bufs[0][region] = sub if interior else torch.where(
+            ok, sub, torch.zeros(()))
+        tags[0][region] = 0
+        src = 0
+        for step in sched["steps"]:
+            s, ny, nx, r = (step[k] for k in ("s", "ny", "nx", "rows"))
+            ly, lx = halo - (t - s) * ry, halo - (t - s) * rx
+            nb = -(-ny // r)
+            starts = ly + torch.clamp(torch.arange(nb) * r, max=ny - r)
+            cc = lx + torch.arange(nx)
+            acc = [torch.zeros((nb, nx)) for _ in range(r)]
+            for i in range(r + 2 * ry):
+                rr = (starts - ry + i)[:, None]
+                for dx, terms in columns:
+                    used = [(i - ry - dy, c) for dy, c in terms
+                            if 0 <= i - ry - dy < r]
+                    if not used:
+                        continue
+                    at = (rr, (cc + dx)[None, :])
+                    assert (tags[src][at] == s - 1).all(), (s, i, dx)
+                    v = bufs[src][at]
+                    reads += v.numel()
+                    for j, c in used:
+                        acc[j] = fma(c, v, acc[j])
+            dst = 1 - src
+            for j in range(r):
+                rj = starts + j
+                o = acc[j]
+                if not interior:
+                    o = torch.where(inside(r0 + rj, c0 + cc), o,
+                                    torch.zeros(()))
+                if s < t:
+                    bufs[dst][rj[:, None], cc[None, :]] = o
+                    tags[dst][rj[:, None], cc[None, :]] = s
+                else:
+                    out[(r0 + rj)[:, None], (c0 + cc)[None, :]] = o
+            updates += ny * nx
+            computed += nb * r * nx
+            src = dst
+    assert not outs.isnan().any()           # every cell of the layout
+    assert interior_ctas == batch * sched["interior_ctas"]
     assert (updates, computed, reads) == (
-        sched["cell_updates"], sched["computed_updates"],
-        sched["shared_reads"])
-    return out, sched
+        batch * sched["cell_updates"], batch * sched["computed_updates"],
+        batch * sched["shared_reads"])
+    return outs.reshape(layout), sched
 
 
 def jax_sweep(x: np.ndarray, name: str, t: int) -> np.ndarray:
@@ -227,6 +239,10 @@ COLUMNS_ONLY = tspec.define_stencil([((0, 0), 0.5), ((3, 0), 0.25),
                                      ((-1, 0), 0.25)], name="y-only")
 CUSTOM = {s.name: s for s in (ASYM_R4, regs.dense_spec(8, ndim=2),
                               ROWS_ONLY, COLUMNS_ONLY)}
+# the sets past the 128 taps of earlier libraries, as the user builds them
+LARGE = {"box-r6": (tdefine.box(2, radius=6), ref_define.box(2, radius=6)),
+         "blur-r8": (tdefine.blur(2, radius=8),
+                     ref_define.blur(2, radius=8))}
 
 
 @pytest.mark.parametrize("name", list(CUSTOM))
@@ -264,7 +280,8 @@ def test_tile_schedule_at_the_paper_plans(name, t, itemsize, updates):
                                      itemsize)
     sched = st.tile_schedule(spec, t, bh, bw, *spec.domain, itemsize)
     r = sched["rows_per_thread"]
-    assert r == tplanner.rows_per_thread_2d(spec.radius, itemsize) == 8
+    assert r == tplanner.rows_per_thread_2d(spec.radius, itemsize,
+                                            len(spec.taps)) == 8
     rad = spec.radius
     assert sched["cell_updates"] == sched["ctas"] * sum(
         (bh + 2 * k * rad) * (bw + 2 * k * rad) for k in range(t))
@@ -333,8 +350,13 @@ def test_kernel_taps_order_and_limits():
     box = tspec.get("j2d25pt").taps                        # tap order
     dy, dx, _ = st.kernel_taps(box)
     assert [(int(a), int(b)) for a, b in zip(dy, dx)] == [o for o, _ in box]
-    with pytest.raises(ValueError, match="at most"):
-        st.kernel_taps(tspec.box_taps(2, 6))               # 169 taps
+    # every set validate_spec accepts: up to the 17 x 17 box of radius 8
+    assert st.MAX_TAPS == (2 * tspec.MAX_RADIUS + 1) ** 2 == 289
+    for taps in (tspec.box_taps(2, 6), tspec.box_taps(2, 8)):  # 169, 289
+        dy, dx, c = st.kernel_taps(taps)
+        assert len(c) == len(taps) and abs(c.sum() - 1.0) < 1e-12
+    with pytest.raises(ValueError, match="at most 289 taps"):
+        st.kernel_taps(tspec.box_taps(2, 9))               # 361 taps
 
 
 # ------------------------------------------------ the tap-set header ----
@@ -354,7 +376,8 @@ def define(text, name):
 
 @pytest.mark.parametrize("spec", [tspec.get(n) for n in SPECS_2D]
                          + list(CUSTOM.values())
-                         + regs.probe_specs(ndim=2),
+                         + regs.probe_specs(ndim=2)
+                         + [mine for mine, _ in LARGE.values()],
                          ids=lambda s: s.name)
 def test_header_holds_kernel_taps_bit_exact(spec):
     text = gen.header(spec.taps)
@@ -373,9 +396,9 @@ def test_header_holds_kernel_taps_bit_exact(spec):
     assert define(text, "ST2_REACH_Y") == tplanner.axis_reach(spec, 0)
     assert define(text, "ST2_REACH_X") == tplanner.axis_reach(spec, 1)
     assert define(text, "ST2_ROWS_F32") == tplanner.rows_per_thread_2d(
-        spec.radius, 4)
+        spec.radius, 4, len(want))
     assert define(text, "ST2_ROWS_F64") == tplanner.rows_per_thread_2d(
-        spec.radius, 8)
+        spec.radius, 8, len(want))
     assert define(text, "ST2_THREADS") == tplanner.THREADS
 
 
@@ -393,8 +416,11 @@ def test_tapset_library_path_keys_on_the_tap_set():
     assert path.name.startswith("libstencil2d-")
     with pytest.raises(ValueError, match="template"):
         _build.library_path("stencil2d")
+    big = tspec.define_stencil(tspec.box_taps(2, 8))       # 289 taps
+    assert _build.library_path("stencil2d", st.tapset_header(big)) != path
+    over = dataclasses.replace(big, taps=tuple(tspec.box_taps(2, 9)))
     with pytest.raises(ValueError, match="at most"):
-        st.tapset_header(tspec.define_stencil(tspec.box_taps(2, 6)))
+        st.tapset_header(over)                             # 361 taps
 
 
 def test_register_probe_tap_sets_2d():
@@ -412,3 +438,56 @@ def test_register_probe_tap_sets_2d():
     assert text == gen.header(dense.taps) and (r32, r64) == (8, 4)
     text, r32, r64 = regs.header_at_2d(dense, 16)
     assert define(text, "ST2_ROWS_F32") == define(text, "ST2_ROWS_F64") == 16
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", list(LARGE))
+def test_tile_schedule_large_tap_sets_with_a_batch(name, itemsize):
+    """The 169- and 289-tap sets (radius 6 and 8) replayed on a batch of
+    two fields, one grid z per field, at the rows a thread of the f32
+    and the f64 instantiation computes: the replay equals the plain
+    version, each field equals its own sweep, and the reference within
+    2e-5."""
+    spec, rspec = LARGE[name]
+    shape, t, bh, bw = (29, 41), 1, 16, 32
+    hp, wp = st.padded_shape_2d(spec, t, bh, bw, *shape)
+    xs = [field(shape, seed=11 + i) for i in range(2)]
+    xp = torch.stack([padded(x, hp, wp) for x in xs])
+    xp[:, shape[0]:] = 5.0                 # dirty padding reads as 0
+    tiles, sched = emulate_tiles(xp, spec, t, shape[0], shape[1], bh, bw,
+                                 itemsize)
+    assert sched["rows_per_thread"] == tplanner.rows_per_thread_2d(
+        spec.radius, itemsize, len(spec.taps))
+    assert sched["rows_per_thread"] == (
+        8 if itemsize == 4 else 4 if len(spec.taps) <= 169 else 1)
+    plain = st.ebisu2d_padded_plain(xp, spec, t, height=shape[0],
+                                    width=shape[1])
+    torch.testing.assert_close(tiles, plain, atol=1e-6, rtol=0)
+    for i, x in enumerate(xs):
+        one = st.ebisu2d_padded_plain(xp[i], spec, t, height=shape[0],
+                                      width=shape[1])
+        assert torch.equal(plain[i], one)
+        want = np.asarray(jref.reference_unrolled(jnp.asarray(x), rspec, t))
+        np.testing.assert_allclose(tiles[i, :shape[0], :shape[1]].numpy(),
+                                   want, atol=TOL, rtol=TOL)
+
+
+def test_wrapper_takes_a_batch_axis():
+    """``(B, hp, wp)`` is B fields in one call (one launch on the card);
+    the launch count does not move on the CPU; a batch beyond the grid's
+    z extent and a 4-D buffer are refused."""
+    spec = tspec.get("j2d9pt")
+    xs = torch.from_numpy(np.stack([field((32, 64), seed=i)
+                                    for i in range(3)]))
+    before = st.ebisu2d_padded.launches
+    out = st.ebisu2d_padded(xs, spec, 2, height=30, width=60, bh=8, bw=32)
+    assert st.ebisu2d_padded.launches == before
+    for i in range(3):
+        assert torch.equal(out[i], st.ebisu2d_padded(
+            xs[i], spec, 2, height=30, width=60, bh=8, bw=32))
+    with pytest.raises(ValueError, match="batch axis"):
+        st.ebisu2d_padded(xs[None], spec, 2, height=30, width=60, bh=8,
+                          bw=32)
+    with pytest.raises(ValueError, match="1 to 65535 fields"):
+        st.ebisu2d_padded(torch.zeros((0, 32, 64)), spec, 2, height=30,
+                          width=60, bh=8, bw=32)

@@ -22,6 +22,7 @@ Tolerances: 1e-6 between the emulator and the plain version (the same
 taps, summed in another order), 2e-5 against the reference (its suite's
 own).
 """
+import dataclasses
 import re
 
 import jax.numpy as jnp
@@ -29,16 +30,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.api import define as ref_define
 from repro.core import roofline as ref_rl
 from repro.core import stencil_spec as ref_spec
 from repro.kernels import ref as jref
+from repro_torch.api import compile_stencil
+from repro_torch.api import define as tdefine
 from repro_torch.core import planner as tplanner
 from repro_torch.core import roofline as trl
 from repro_torch.core import stencil_spec as tspec
 from repro_torch.kernels import _build
+from repro_torch.kernels import stencil2d as st2
 from repro_torch.kernels import stencil3d as st3
 from repro_torch.kernels import stencil3d_gen as gen
-from repro_torch.launch import stencil3d_registers as regs
+from repro_torch.launch import stencil_registers as regs
 
 SPECS_3D = [n for n, s in tspec.TABLE2.items() if s.ndim == 3]
 SPECS_2D = [n for n, s in tspec.TABLE2.items() if s.ndim == 2]
@@ -66,8 +71,13 @@ def padded(x: np.ndarray, layout) -> torch.Tensor:
 
 def emulate_stream(xp, spec, t, shape, zc, ty, tx):
     """The CUDA kernel's per-CTA schedule, replayed CTA by CTA; returns
-    the output and the shared-memory bytes its plane buffers held."""
+    the output and the shared-memory bytes its plane buffers held.  A
+    leading batch axis of ``xp`` folds into the grid's z as the kernel
+    folds it: z block ``field · chunks + chunk``, each CTA reading and
+    writing its field's layout alone."""
     zdim, ydim, xdim = shape
+    layout = xp.shape
+    fields = xp.reshape((-1,) + tuple(layout[-3:]))
     geom = st3.launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
     assert geom["threads"] is not None, "the kernel refuses this launch"
     rings = tplanner.ring_extents_3d(spec, t, shape, ty, tx)
@@ -80,7 +90,7 @@ def emulate_stream(xp, spec, t, shape, zc, ty, tx):
     b_planes = tplanner.planes_per_barrier(rad)
     groups = gen.tap_groups(spec.taps)
     sy, sx = (rad if tiled_y else 0), (rad if tiled_x else 0)
-    out = torch.full_like(xp, float("nan"))
+    outs = torch.full_like(fields, float("nan"))
 
     def region(s, tiled, tile_org, frame, dim, extent):
         """(first index, count, global coordinate of index 0) of the
@@ -95,7 +105,9 @@ def emulate_stream(xp, spec, t, shape, zc, ty, tx):
 
     gz_n, gy_n, gx_n = geom["grid"]
     updates = 0
-    for cz in range(gz_n):
+    for bz in range(gz_n * len(fields)):
+        field_, cz = divmod(bz, gz_n)
+        xp, out = fields[field_], outs[field_]
         for cy in range(gy_n):
             for cx in range(gx_n):
                 z_base = cz * zc - halo
@@ -177,9 +189,9 @@ def emulate_stream(xp, spec, t, shape, zc, ty, tx):
                                 out[gz, gys[0]:gys[-1] + 1,
                                     gxs[0]:gxs[-1] + 1] = o
                     assert not reads & writes, (it, reads & writes)
-    assert updates == geom["cell_updates"]
+    assert updates == len(fields) * geom["cell_updates"]
     smem = 4 * sum(b.numel() for lev in bufs for par in lev for b in par)
-    return out, smem
+    return outs.reshape(layout), smem
 
 
 # (shape, t, zc, ty, tx): zc not dividing zdim, tiles narrower than the
@@ -320,8 +332,12 @@ def test_kernel_taps_order_and_limits():
     box = tspec.get("j3d27pt").taps                           # tap order
     dz, dy, dx, _ = st3.kernel_taps(box)
     assert [tuple(map(int, o)) for o in zip(dz, dy, dx)] == [o for o, _ in box]
-    with pytest.raises(ValueError, match="at most"):
-        st3.kernel_taps(tspec.box_taps(3, 3))                 # 343 taps
+    dz, dy, dx, c = st3.kernel_taps(tspec.box_taps(3, 3))     # 343 taps
+    assert len(c) == 343 and abs(c.sum() - 1.0) < 1e-12
+    # every set validate_spec accepts: up to the 17^3 box of radius 8
+    assert st3.MAX_TAPS == (2 * tspec.MAX_RADIUS + 1) ** 3 == 4913
+    with pytest.raises(ValueError, match="at most 4913 taps"):
+        st3.kernel_taps(tspec.box_taps(3, 9))                 # 6859 taps
 
 
 # ------------------------------------------------ the tap-set header ----
@@ -488,3 +504,68 @@ def test_kernel_bounds_cap_the_planner():
     fit = tplanner.fit_tile_3d(wide, 3, shape, trl.H100, 4)
     assert fit is not None
     assert tplanner.kernel_threads_3d(wide, 3, shape, *fit[1:3], 4)
+
+
+def test_stream_schedule_large_tap_set_with_a_batch():
+    """The 343-tap box of radius 3 replayed on a batch of two fields,
+    folded into the grid's z as the kernel folds it: the replay equals
+    the plain version, each field its own sweep, and the reference
+    within 2e-5."""
+    spec, rspec = tdefine.box(3, radius=3), ref_define.box(3, radius=3)
+    shape, t, zc, ty, tx = (8, 9, 10), 1, 3, 5, None
+    geom = st3.launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx)
+    xs = [field(shape, seed=21 + i) for i in range(2)]
+    xp = torch.stack([padded(x, geom["padded"]) for x in xs])
+    got, smem = emulate_stream(xp, spec, t, shape, zc, ty, tx)
+    kw = dict(zip(("zdim", "ydim", "xdim"), shape))
+    plain = st3.ebisu3d_padded_plain(xp, spec, t, **kw)
+    torch.testing.assert_close(got, plain, atol=1e-6, rtol=0)
+    assert smem == geom["kernel_smem_bytes"]
+    for i, x in enumerate(xs):
+        assert torch.equal(plain[i], st3.ebisu3d_padded_plain(xp[i], spec, t,
+                                                              **kw))
+        want = np.asarray(jref.reference_unrolled(jnp.asarray(x), rspec, t))
+        np.testing.assert_allclose(got[i, :8, :9, :10].numpy(), want,
+                                   atol=2e-5, rtol=2e-5)
+
+
+def test_wrapper_takes_a_batch_axis():
+    """``(B, zp, yp, xp)`` is B fields in one call (one launch on the
+    card, its z chunks folded into the grid's z); the z extent caps the
+    batch."""
+    spec = tspec.get("j3d7pt")
+    kw = dict(zdim=14, ydim=12, xdim=20, zc=8)
+    xs = torch.from_numpy(np.stack([field((16, 12, 20), seed=i)
+                                    for i in range(3)]))
+    before = st3.ebisu3d_padded.launches
+    out = st3.ebisu3d_padded(xs, spec, 2, **kw)
+    assert st3.ebisu3d_padded.launches == before      # CPU: no kernel
+    for i in range(3):
+        assert torch.equal(out[i], st3.ebisu3d_padded(xs[i], spec, 2, **kw))
+    with pytest.raises(ValueError, match="not the layout"):
+        st3.ebisu3d_padded(xs[None], spec, 2, **kw)
+    many = torch.zeros((1, 16, 12, 20)).expand(st3.MAX_GRID_Z // 2 + 1, -1,
+                                               -1, -1)
+    with pytest.raises(ValueError, match="z chunks over the batch"):
+        st3.ebisu3d_padded(many, spec, 2, **kw)
+
+
+def test_compile_refuses_a_set_over_the_cap_for_the_card(monkeypatch):
+    """No set that validate_spec accepts is over either kernel's cap, so
+    ``compile_stencil`` refuses none for the card (the radius-8 boxes,
+    289 and 4913 taps, get past the spec checks to the device, which the
+    CPU lacks); a set past the caps is refused by the spec checks, before
+    any kernel, naming the radius bound."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for spec, shape in ((tdefine.box(2, radius=8), (40, 40)),
+                        (tdefine.box(3, radius=8), (40, 40, 40))):
+        assert len(spec.taps) == (st3.MAX_TAPS if spec.ndim == 3
+                                  else 289)
+        header = (st3 if spec.ndim == 3 else st2).tapset_header(spec)
+        assert f"NTAPS {len(spec.taps)}" in header
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            compile_stencil(spec, shape)
+    over = dataclasses.replace(tdefine.box(3, radius=3),
+                               taps=tuple(tspec.box_taps(3, 9)), radius=9)
+    with pytest.raises(ValueError, match="radius"):
+        compile_stencil(over, (40, 40, 40), device="cpu")
