@@ -2,7 +2,8 @@
 """Smoke test and measurement of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
-    python3 chip_smoke.py lm   # one phase alone: 2d 3d systems lm train
+    python3 chip_smoke.py lm   # phases alone: 2d 3d sharded campaign
+                               # systems lm train
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
@@ -30,6 +31,21 @@ in its own counted run:
   (the 2-D field streamed through the 3-D kernel as 8352×1×8352),
   ``run_batched`` of two j3d7pt fields at 2560×288×384 and ``.run`` of
   the 343-tap set at 512×288×384;
+* sharded (no kernel): ``compile_stencil(..., mesh=)`` and
+  ``run_sharded`` on a (2, 2) mesh of ``cuda:0`` × 4 (the shards share
+  the card; slabs move by on-device copies): j2d5pt at 8352², t = 12,
+  25 steps, under Dirichlet(0), periodic and reflect, and j3d7pt at
+  2560×288×384, t = 8, 17 steps, sharded over z and y, f32.  The shards
+  compute in plain torch, as the reference's compute in plain jnp, so
+  no stencil kernel launches; the exchange count must be
+  ``planned_exchange_rounds(T, t) × 2 × 2``.  A mesh of size 1 runs
+  ``.run`` and must launch its 3 sweeps;
+* campaign (``stencil2d``, ``stencil3d``): ``run_resumable`` of j2d5pt
+  at 8352² (t = 12, 25 steps: fresh with ``every`` 1 and 2, crashed
+  after leg 2 and resumed, a poisoned leg rolled back) and of j3d7pt at
+  2560×288×384 (t = 8, 17 steps: fresh, crashed and resumed), f32,
+  checkpoints in a temporary directory removed afterwards; the launches
+  must equal the sweeps of the legs run, exactly;
 * systems (no kernel): the three coupled systems of
   ``repro_torch.systems`` at 512², periodic and Neumann, on the card
   against the same programs on the CPU in float64, then timed at 4096²
@@ -62,7 +78,14 @@ stencil kernel against its plain version on the main path's own padded
 inputs and against a second launch, bit for bit (the large tap sets
 too); ``run_batched`` against a loop of ``.run`` and ``run_padded``
 against ``.run``, bit for bit, with the batched and looped times side
-by side; the
+by side; each sharded run against ``.run`` on the card (< 1e-4) and
+against a second call, bit for bit, timed beside ``.run``, and the
+refusal of ``make_stencil_mesh((2, 2))`` without ``devices=`` on a host
+of fewer than four cards; each campaign against ``.run``, bit for bit,
+a sharded campaign that loses a device restored onto (2, 1) (< 1e-4 of
+``.run``), the CLI killed after leg 2's checkpoint (exit 137) in a
+subprocess and resumed, its ``--out`` equal to a straight run's, and
+the campaign's time with its checkpoints beside ``.run``'s; the
 whole LM path in f32 at full width and depth 2, kernel against the chunked
 attention path (last-token logits < 1e-4, greedy agreement printed); the
 whole training path in f32 at full width and depth 2, kernels against the
@@ -266,24 +289,25 @@ def main() -> int:
                 frames.values()), f"{lib} {name}: spill stores or a "
                 "stack frame")
 
-    phases = sys.argv[1:] or ["2d", "3d", "systems", "lm", "train"]
-    check(set(phases) <= {"2d", "3d", "systems", "lm", "train"},
-          f"unknown phases {phases}; pass any of 2d 3d systems lm train, "
-          "or none for all")
+    every = ["2d", "3d", "sharded", "campaign", "systems", "lm", "train"]
+    phases = sys.argv[1:] or every
+    check(set(phases) <= set(every), f"unknown phases {phases}; pass any "
+          f"of {' '.join(every)}, or none for all")
+    run = {"2d": lambda: two_d(dev), "3d": lambda: three_d(dev, held),
+           "sharded": lambda: sharded(dev), "campaign": lambda: campaign(dev),
+           "systems": lambda: systems(dev),
+           "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev)}
     entries = []
-    if "2d" in phases:
-        entries.append(two_d(dev))
-    if "3d" in phases:
-        entries.append(three_d(dev, held))
+    for phase in every:
+        if phase not in phases:
+            continue
+        t0 = time.perf_counter()
+        entry = run[phase]()
+        if entry is not None:      # the phases that own a kernel's entry
+            entries.append(entry)
         torch.cuda.empty_cache()
-    if "systems" in phases:
-        systems(dev)
-        torch.cuda.empty_cache()
-    if "lm" in phases:
-        entries.append(lm_serve(dev, held))
-        torch.cuda.empty_cache()
-    if "train" in phases:
-        entries.append(lm_train(dev))
+        print(f"[phase] {phase}: {time.perf_counter() - t0:.1f}s",
+              flush=True)
     print(f"[card] {smi_line()}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -308,14 +332,17 @@ LARGE_DOMAIN_2D, LARGE_DOMAIN_3D = (4096, 4096), (512, 288, 384)
 
 
 def zero_counts() -> None:
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count, and the exchange count, to 0."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import stencil2d as st
     from repro_torch.kernels import stencil3d as st3
 
+    from repro_torch.core.distributed import ppermute
+
     for fn in (st.ebisu2d_padded, st3.ebisu3d_padded, fa.flash_attention_fwd,
                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkdv):
         fn.launches = 0
+    ppermute.calls = 0
 
 
 def stencil_bound(spec, t, cells, padded_cells, itemsize):
@@ -1076,6 +1103,302 @@ def systems(dev) -> None:
     check(st.ebisu2d_padded.launches == 0
           and st3.ebisu3d_padded.launches == 0,
           "the systems phase launched a stencil kernel")
+
+
+# the sharded phase: the paper's domains on a (2, 2) mesh of one card
+SHARDED_2D = ("j2d5pt", 12, 25)          # (stencil, t, T)
+SHARDED_3D = ("j3d7pt", 8, 17)
+SHARDED_TOL = 1e-4                       # f32, run_sharded vs .run
+SHARDED_ROUTE = ("plain torch per shard (the reference's own per-shard "
+                 "compute)")
+
+
+def sharded(dev) -> None:
+    """``compile_stencil(..., mesh=)`` → ``run_sharded`` on a (2, 2) mesh
+    of ``cuda:0`` × 4 at the paper's domains, counted: no stencil kernel
+    launches, and the exchange counter reads ``planned_exchange_rounds(T,
+    t) × 2 × 2``; a mesh of size 1 launches exactly ``.run``'s sweeps.
+    Then, uncounted: each run within 1e-4 of ``.run`` on the card and
+    equal to a second call bit for bit, the timings, and the refusal of a
+    (2, 2) mesh without ``devices=`` on a one-card host."""
+    import torch
+
+    from repro_torch.api import (Boundary, compile_stencil,
+                                 planned_exchange_rounds)
+    from repro_torch.core.distributed import ppermute
+    from repro_torch.core.stencil_spec import get
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch.mesh import device_summary, make_stencil_mesh
+    from repro_torch.stencils.data import init_domain
+
+    mesh = make_stencil_mesh((2, 2), devices=[dev] * 4)
+    name2, t2, steps2 = SHARDED_2D
+    name3, t3, steps3 = SHARDED_3D
+    cases = [(name2, t2, steps2, b) for b in (
+        Boundary.dirichlet(0.0), Boundary.periodic(), Boundary.reflect())]
+    cases.append((name3, t3, steps3, Boundary.dirichlet(0.0)))
+    fields = {n: init_domain(get(n), device=dev, seed=0)
+              for n in (name2, name3)}
+
+    # ---- the sharded runs, counted --------------------------------------
+    runs = []
+    zero_counts()
+    for name, t, steps, boundary in cases:
+        spec = get(name)
+        prog = compile_stencil(spec, spec.domain, t=t, mesh=mesh,
+                               boundary=boundary)
+        calls = ppermute.calls
+        y = prog.run_sharded(fields[name], steps)
+        torch.cuda.synchronize()
+        runs.append(dict(prog=prog, y=y, steps=steps, boundary=boundary,
+                         exchanges=ppermute.calls - calls))
+    launched = st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+    print(f"[main path sharded] mesh (2, 2) devices="
+          f"{device_summary(mesh.devices.flat)}: stencil launches "
+          f"{launched}, exchanges "
+          f"{[r['exchanges'] for r in runs]}", flush=True)
+    check(launched == 0, f"run_sharded on a mesh of 4 shards launched "
+          f"{launched} stencil kernels, not 0")
+    for r in runs:
+        want = planned_exchange_rounds(r["steps"], r["prog"].t) * 2 * 2
+        check(r["exchanges"] == want, f"{r['prog'].spec.name} "
+              f"{r['boundary']!r}: {r['exchanges']} exchanges, not {want}")
+    # a mesh of size 1 is .run: the same launches
+    spec2 = get(name2)
+    one = compile_stencil(spec2, spec2.domain, t=t2, mesh=make_stencil_mesh(
+        (1, 1), devices=[dev]))
+    zero_counts()
+    y_one = one.run_sharded(fields[name2], steps2)
+    torch.cuda.synchronize()
+    one_launches = st.ebisu2d_padded.launches
+    single = compile_stencil(spec2, spec2.domain, t=t2)
+    zero_counts()
+    y_run = single.run(fields[name2], steps2)
+    torch.cuda.synchronize()
+    run_launches = st.ebisu2d_padded.launches
+    print(f"[main path sharded] mesh (1, 1): stencil2d launches "
+          f"{one_launches} (.run: {run_launches})", flush=True)
+    check(one_launches == run_launches == 3, f"mesh of size 1: "
+          f"{one_launches} launches, .run {run_launches}, not 3 each")
+    check(torch.equal(y_one, y_run), "mesh of size 1 differs from .run")
+
+    # ---- checks and timings, uncounted ----------------------------------
+    for r in runs:
+        prog, spec = r["prog"], r["prog"].spec
+        x = fields[spec.name]
+        plain = compile_stencil(spec, spec.domain, t=prog.t,
+                                boundary=r["boundary"])
+        check(r["y"].device == x.device, "run_sharded left the card")
+        check(r["y"].shape == x.shape, f"{spec.name}: output shape")
+        want = plain.run(x, r["steps"])
+        what = (f"{spec.name} {r['boundary']!r} run_sharded({r['steps']}) "
+                f"on (2, 2) cuda:0 x4 vs .run")
+        held(r["y"], want, SHARDED_TOL, what)
+        again = prog.run_sharded(x, r["steps"])
+        check(torch.equal(again, r["y"]), f"{what}: a second call differs")
+        print(f"[check] {what}: a second call equal bit for bit",
+              flush=True)
+        del again
+        ms = median_ms(lambda: prog.run_sharded(x, r["steps"]), 3, 1)
+        run_ms = median_ms(lambda: plain.run(x, r["steps"]), 3, 1)
+        row = dict(phase="sharded", stencil=spec.name,
+                   boundary=repr(r["boundary"]), domain=list(spec.domain),
+                   mesh=[2, 2], devices=device_summary(mesh.devices.flat),
+                   t=prog.t, steps=r["steps"], exchanges=r["exchanges"],
+                   run_sharded_ms=ms, run_ms=run_ms,
+                   sharded_over_run=ms / run_ms, route=SHARDED_ROUTE)
+        print("[timing] " + json.dumps(row), flush=True)
+        del want
+    n_cards = torch.cuda.device_count()
+    try:
+        make_stencil_mesh((2, 2))
+        check(n_cards >= 4, "make_stencil_mesh((2, 2)) without devices= "
+              f"took a mesh on {n_cards} cards")
+        print(f"[check] make_stencil_mesh((2, 2)) without devices=: "
+              f"{n_cards} cards, no refusal", flush=True)
+    except RuntimeError as e:
+        check(n_cards < 4 and "devices=" in str(e), f"refusal: {e}")
+        print(f"[check] make_stencil_mesh((2, 2)) without devices= on "
+              f"{n_cards} card(s) refuses: {e}", flush=True)
+
+
+# the campaign phase: j2d5pt at 8352^2 and j3d7pt at 2560x288x384, f32
+CAMPAIGN_2D = ("j2d5pt", 12, 25)
+CAMPAIGN_3D = ("j3d7pt", 8, 17)
+CAMPAIGN_CLI_SCALE = 2        # the CLI kill-and-resume at 4176^2
+
+
+def campaign(dev) -> None:
+    """Resumable campaigns on the card, counted: fresh campaigns with
+    ``every`` = 1 and 2, a crash after leg 2 and ``resume_campaign``, a
+    poisoned leg rolled back, each against ``.run`` bit for bit, and the
+    stencil launches equal to the sweeps of the legs run, exactly; an
+    elastic restore of a sharded campaign from a (2, 2) ``cuda:0`` mesh
+    onto (2, 1), within 1e-4 of ``.run``.  Then the CLI killed after leg
+    2 (exit 137) in a subprocess on the card and resumed, bit for bit a
+    straight run's ``--out``, and the campaign's time beside ``.run``'s,
+    its checkpoints written.  Checkpoints go to a temporary directory
+    that is removed afterwards."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import compile_stencil, sweep_schedule
+    from repro_torch.core.stencil_spec import get
+    from repro_torch.faults import FaultConfig, FaultInjector, SimClock
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch.mesh import make_stencil_mesh
+    from repro_torch.resilient import (CampaignStore, leg_schedule,
+                                       resume_campaign)
+    from repro_torch.stencils.data import init_domain
+
+    class Crash(Exception):
+        pass
+
+    def sweeps(steps, t):
+        return len(sweep_schedule(steps, t))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        def store():
+            """An empty store in place of the last one (whose campaign
+            has ended and waited for its writes): one checkpoint kept,
+            which is all a rollback here needs, so the disk holds one
+            field at a time."""
+            path = os.path.join(tmp, "ck")
+            shutil.rmtree(path, ignore_errors=True)
+            return CampaignStore(path, keep=1)
+
+        results, expect = [], 0
+        zero_counts()
+        for name, t, steps in (CAMPAIGN_2D, CAMPAIGN_3D):
+            spec = get(name)
+            prog = compile_stencil(spec, spec.domain, t=t)
+            x = init_domain(spec, device=dev, seed=0)
+            legs = leg_schedule(steps, t)
+            full = sum(sweeps(n, t) for _, n in legs)
+            for every in ((1, 2) if spec.ndim == 2 else (1,)):
+                rep = prog.run_resumable(x, steps, store=store(),
+                                         every=every)
+                results.append((prog, x, steps, f"fresh every={every}",
+                                rep.result))
+                expect += sum(sweeps(n, t)
+                              for _, n in leg_schedule(steps, t, every))
+            s = store()
+
+            def crash(leg, done, s=s):
+                if leg == 2:
+                    s.wait()
+                    raise Crash()
+
+            try:
+                prog.run_resumable(x, steps, store=s, on_leg=crash)
+                check(False, f"{name}: the crash hook never fired")
+            except Crash:
+                pass
+            rep = resume_campaign(prog, s)
+            check(rep.resumed_from == 2, f"{name}: resumed from "
+                  f"{rep.resumed_from}, not leg 2")
+            results.append((prog, x, steps, "crash after leg 2, resumed",
+                            rep.result))
+            expect += full
+            if spec.ndim == 2:
+                rep = prog.run_resumable(
+                    x, steps, store=store(), clock=SimClock(),
+                    faults=FaultInjector(FaultConfig(nan_at_leg=(2,))))
+                check(rep.rollbacks == 1 and rep.retries == 1,
+                      f"{name}: poisoned leg 2: {rep.rollbacks} rollbacks")
+                results.append((prog, x, steps, "leg 2 poisoned, rolled "
+                                "back", rep.result))
+                expect += full + sweeps(legs[1][1], t)
+        torch.cuda.synchronize()
+        launched = st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+        print(f"[main path campaign] stencil launches {launched} "
+              f"(stencil2d {st.ebisu2d_padded.launches}, stencil3d "
+              f"{st3.ebisu3d_padded.launches}); the legs' sweeps: {expect}",
+              flush=True)
+        check(launched == expect, f"campaigns launched {launched} stencil "
+              f"kernels, not the legs' {expect} sweeps")
+
+        # ---- checks, uncounted ------------------------------------------
+        for prog, x, steps, what, got in results:
+            want = prog.run(x, steps)
+            check(got.device == x.device and torch.equal(got, want),
+                  f"{prog.spec.name} campaign ({what}) differs from .run")
+            print(f"[check] {prog.spec.name} campaign ({what}): equal to "
+                  f".run({steps}) bit for bit", flush=True)
+        del results
+
+        # elastic restore of a sharded campaign: (2, 2) -> (2, 1)
+        name, t, steps = CAMPAIGN_2D
+        spec = get(name)
+        x = init_domain(spec, device=dev, seed=0)
+        mesh = make_stencil_mesh((2, 2), devices=[dev] * 4)
+        progm = compile_stencil(spec, spec.domain, t=t, mesh=mesh)
+        rep = progm.run_sharded_resumable(
+            x, steps, store=store(), clock=SimClock(),
+            faults=FaultInjector(FaultConfig(device_loss_at_leg=(2,))))
+        check(rep.mesh_history == [(2, 1)],
+              f"elastic restore: mesh history {rep.mesh_history}")
+        plain = compile_stencil(spec, spec.domain, t=t)
+        held(rep.result, plain.run(x, steps), 1e-4,
+             f"{name} sharded campaign, device lost before leg 2, restored "
+             "onto (2, 1) cuda:0, vs .run")
+
+        # the CLI: killed after leg 2's checkpoint, resumed
+        from repro_torch.launch import stencil_run
+
+        args = ["--stencil", name, "--scale", str(CAMPAIGN_CLI_SCALE),
+                "--t", str(t), "--T", str(steps)]
+        straight = os.path.join(tmp, "straight.npy")
+        resumed = os.path.join(tmp, "resumed.npy")
+        stencil_run.main(args + ["--checkpoint-dir",
+                                 os.path.join(tmp, "cli_a"), "--out",
+                                 straight])
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.stencil_run"] + args
+        ck = os.path.join(tmp, "cli_b")
+        r = subprocess.run(base + ["--checkpoint-dir", ck,
+                                   "--kill-after-leg", "2"],
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode in (-9, 137), f"CLI --kill-after-leg 2 exited "
+              f"{r.returncode}, not 137: {r.stderr[-2000:]}")
+        print(f"[check] CLI --kill-after-leg 2: exit "
+              f"{128 - r.returncode if r.returncode < 0 else r.returncode} "
+              f"({r.stdout.strip().splitlines()[-1]})", flush=True)
+        r = subprocess.run(base + ["--checkpoint-dir", ck, "--resume",
+                                   "auto", "--out", resumed],
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode == 0, f"CLI resume failed: {r.stderr[-2000:]}")
+        check("resumed@leg2" in r.stdout, f"CLI resume: {r.stdout}")
+        check(bool((np.load(straight) == np.load(resumed)).all()),
+              "CLI: the resumed --out differs from the straight run's")
+        print(f"[check] CLI resumed ({r.stdout.strip().splitlines()[0]}) "
+              "--out equal to a straight run's, bit for bit", flush=True)
+
+        # timing: a campaign with its checkpoints written, beside .run
+        # (the 3-D field is 1.1 GB a checkpoint: one timed campaign)
+        for (name, t, steps), reps in ((CAMPAIGN_2D, 3), (CAMPAIGN_3D, 1)):
+            spec = get(name)
+            prog = compile_stencil(spec, spec.domain, t=t)
+            x = init_domain(spec, device=dev, seed=0)
+            ms = median_ms(lambda: prog.run_resumable(
+                x, steps, store=store(), resume="never"), reps, 0)
+            run_ms = median_ms(lambda: prog.run(x, steps), 3, 1)
+            row = dict(phase="campaign", stencil=name, reps=reps,
+                       domain=list(spec.domain), t=t, steps=steps, every=1,
+                       legs=len(leg_schedule(steps, t)),
+                       checkpoints=len(leg_schedule(steps, t)) + 1,
+                       campaign_ms=ms, run_ms=run_ms,
+                       campaign_over_run=ms / run_ms,
+                       route="the stencil kernel, one launch a sweep")
+            print("[timing] " + json.dumps(row), flush=True)
 
 
 def lm_serve(dev, held) -> dict:

@@ -4,6 +4,8 @@
     spec = define_stencil([((0, 0), 0.6), ((0, 1), 0.1), ...])  # any taps
     prog = compile_stencil(spec, shape, t=4, boundary=Boundary.periodic())
     y = prog.run(x, 64)
+    prog = compile_stencil(spec, shape, t=4, mesh=(2, 2), device="cpu")
+    y = prog.run_sharded(x, 64)          # one halo exchange per 4 steps
 
 The LM half has the same front door for attention:
 
@@ -25,6 +27,7 @@ from repro_torch.api.program import (ProgramCache, StencilProgram,
                                      compile_stencil, plan_bucketed,
                                      resolve_compute_dtype,
                                      resolve_geometry, sweep_schedule)
+from repro_torch.api.sharded import count_ppermutes, planned_exchange_rounds
 from repro_torch.core.device import resolve_device
 from repro_torch.core.stencil_spec import (StencilSpec, define_stencil,
                                            spec_from_reference)
@@ -43,9 +46,11 @@ __all__ = [
     "clear_caches",
     "compile_attention",
     "compile_stencil",
+    "count_ppermutes",
     "define_stencil",
     "from_operator",
     "parse_taps",
+    "planned_exchange_rounds",
     "plan_bucketed",
     "resolve_compute_dtype",
     "resolve_device",

@@ -34,12 +34,22 @@ steps, and each sweep is one launch for the whole batch: both kernels
 take a batch of padded layouts in their grid.  ``run_padded`` chains
 sweeps on a padded buffer the caller owns (2-D, zero Dirichlet).
 
+``compile_stencil(..., mesh=)`` makes the program multi-device:
+``run_sharded`` splits the field over a mesh of devices and exchanges a
+``t·radius``-deep halo once per temporal block (``api/sharded.py``);
+``run_resumable`` and ``run_sharded_resumable`` run the same steps as
+checkpointed legs (``repro_torch.resilient``):
+
+    mesh = make_stencil_mesh((2, 2), devices=["cuda:0"] * 4)
+    prog_m = compile_stencil(get("j2d5pt"), (8352, 8352), t=12, mesh=mesh)
+    y = prog_m.run_sharded(x, 25)   # 3 exchange rounds, not 25
+    rep = prog.run_resumable(x, 25, store=CampaignStore(ckpt_dir))
+
 Programs run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every sweep takes the kernel's plain version.
 Both kernels build a library for every tap set ``validate_spec``
 accepts.  Not ported yet, and refused with the ROADMAP item that brings
-them: ``mode="tuned"``, ``mesh=``, ``run_sharded`` and
-``run_resumable``.
+it: ``mode="tuned"``.
 """
 from __future__ import annotations
 
@@ -67,9 +77,6 @@ _BUCKET = 64
 
 _LATER = {
     "tuned": "ROADMAP Queue 1 item 12 (tuning)",
-    "mesh": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
-    "run_sharded": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
-    "run_resumable": "ROADMAP Queue 1 item 10 (resilient campaigns)",
 }
 
 
@@ -396,7 +403,7 @@ class StencilProgram:
                  dtype: torch.dtype, t: int, plan: EbisuPlan,
                  hw: rl.HardwareModel, boundary: Boundary, mode: str,
                  device: torch.device, compute_dtype: torch.dtype,
-                 kernel_spec: StencilSpec):
+                 kernel_spec: StencilSpec, mesh=None):
         self._key = key
         self.spec = spec
         self.shape = shape
@@ -409,6 +416,7 @@ class StencilProgram:
         self.device = device
         self.compute_dtype = compute_dtype
         self.kernel_spec = kernel_spec   # the lifted spec under "stream"
+        self.mesh = mesh                 # a launch.mesh.Mesh, or None
 
     # ------------------------------------------------------- execution ----
     def _check(self, x, batched: bool = False) -> torch.Tensor:
@@ -527,15 +535,92 @@ class StencilProgram:
             xp, buf = buf, xp
         return xp
 
-    def run_sharded(self, x, total_t: int):
-        raise _not_ported("run_sharded")
+    def run_sharded(self, x, total_t: int) -> torch.Tensor:
+        """``total_t`` steps over the program's device mesh, exchanging
+        deep ghost zones **once per temporal block** instead of once per
+        step (``api/sharded.py``).
 
-    def run_resumable(self, x, total_t: int, **kwargs):
-        raise _not_ported("run_resumable")
+        Each mesh position holds one uniform shard (mesh axis ``k`` over
+        tensor dim ``k``) as its own tensor on its device; per block of
+        depth ``d``, neighbour shards swap ``d·radius``-deep halo slabs
+        (one exchange per direction per sharded dim, corners via two
+        hops) and run the trapezoid-narrowed chain locally, in plain
+        torch.  A mesh of total size 1 falls back to :meth:`run`, and so
+        launches the stencil kernel on the card.
+
+            prog = compile_stencil(spec, (256, 512), t=4, mesh=(2, 4))
+            y = prog.run_sharded(x, 64)       # 16 exchange rounds, not 64
+
+        Requires a program compiled with ``mesh=``.  The reference
+        donates its operand and returns a sharded global ``jax.Array``;
+        the port has no global sharded tensor, so ``x`` is split at the
+        call and the shards are assembled into one tensor on ``x``'s
+        device at the end.
+        """
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(x, device=self.device)
+        if tuple(x.shape) != self.shape:
+            raise ValueError(
+                f"program compiled for shape {self.shape} (got "
+                f"{tuple(x.shape)}); compile_stencil a new program for a "
+                "new domain shape")
+        if self.mesh is None:
+            raise ValueError(
+                "run_sharded needs a mesh-compiled program: "
+                "compile_stencil(spec, shape, mesh=(2, 4)) or mesh=8")
+        if total_t == 0:
+            return x
+        if self.mesh.size == 1:                 # 1-device mesh: no seams
+            return self.run(x, total_t)
+        from repro_torch.api import sharded
+        fn = RUNNER_CACHE.get_or_build(
+            (self._key, "sharded", total_t),
+            lambda: sharded.build_sharded_runner(self, total_t))
+        return fn(x)
+
+    # ----------------------------------------------- resumable campaigns ----
+    def run_resumable(self, x, total_t: int, *, store, every: int = 1,
+                      **kwargs):
+        """``total_t`` steps as checkpointed legs of ``every`` temporal
+        blocks, resumable after a crash and **bit-exact** equal to
+        :meth:`run` (legs are aligned to temporal blocks, so a campaign
+        launches the same sweeps on the same inputs).
+
+            store = CampaignStore("/ckpt/heat2d")
+            rep = prog.run_resumable(x, 512, store=store, every=2)
+            # ... SIGKILL mid-campaign ...
+            rep = prog.run_resumable(x, 512, store=store)   # picks up
+
+        Keyword knobs (``policy=``, ``health=``, ``faults=``, ``clock=``,
+        ``resume=``, ``on_leg=``) pass through to
+        :func:`repro_torch.resilient.runner.run_campaign`; returns its
+        :class:`~repro_torch.resilient.runner.CampaignReport` (the final
+        field is ``report.result``).
+        """
+        from repro_torch.resilient import runner
+        return runner.run_campaign(self, x, total_t, store=store,
+                                   every=every, sharded=False, **kwargs)
+
+    def run_sharded_resumable(self, x, total_t: int, *, store,
+                              every: int = 1, **kwargs):
+        """The sharded twin of :meth:`run_resumable`: checkpointed legs
+        of :meth:`run_sharded` over the program's mesh, plus elastic
+        restore onto a smaller mesh when a device drops (the default
+        ``RetryPolicy(elastic=True)``)."""
+        if self.mesh is None:
+            raise ValueError(
+                "run_sharded_resumable needs a mesh-compiled program: "
+                "compile_stencil(spec, shape, mesh=(2, 4))")
+        from repro_torch.resilient import runner
+        return runner.run_campaign(self, x, total_t, store=store,
+                                   every=every, sharded=True, **kwargs)
 
     # ---------------------------------------------------- introspection ----
     def fingerprint(self) -> dict:
-        """A JSON-safe identity card of the program."""
+        """A JSON-safe identity card for checkpoint manifests: what a
+        resumed campaign must match (spec signature, shape, dtypes,
+        boundary, depth, mode, hw) plus what may drift only elastically
+        (mesh, plan) — see ``repro_torch.resilient.store``."""
         return {
             "spec_name": self.spec.name,
             "spec_signature": repr(self.spec.signature),
@@ -548,6 +633,8 @@ class StencilProgram:
             "hw": self.hw.name,
             "device": str(self.device),
             "plan": repr(_plan_key(self.plan)),
+            "mesh": (None if self.mesh is None
+                     else {k: int(v) for k, v in self.mesh.shape.items()}),
         }
 
     def compute_shape(self, t: int | None = None) -> tuple[int, ...]:
@@ -636,6 +723,19 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     :func:`plan_bucketed`).  ``dtype`` is cell storage and ``compute_dtype`` what the kernel runs
     in (see :func:`resolve_compute_dtype`).  Programs are memoized:
     recompiling with identical arguments returns the same handle.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, an int, or a
+    tuple — mesh axis ``k`` shards tensor dim ``k``) makes the program
+    multi-device: the §6 plan is resolved **per shard**, shard uniformity
+    and halo fit are validated here with the fix spelled out, and
+    :meth:`StencilProgram.run_sharded` becomes available.  An int or
+    tuple takes ``n`` CPU shards on a ``device="cpu"`` program and the
+    visible GPUs otherwise; a Mesh without ``device`` puts the program on
+    the mesh's first device::
+
+        mesh = make_stencil_mesh((2, 2), devices=["cuda:0"] * 4)
+        prog = compile_stencil(spec, (256, 512), t=4, mesh=mesh)
+        y = prog.run_sharded(x, 64)     # one halo exchange per 4 steps
     """
     validate_spec(spec)
     if mode == "tuned":
@@ -646,30 +746,43 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     if mode == "stream" and spec.ndim != 2:
         raise ValueError(f"mode='stream' lifts a 2-D stencil; {spec.name} "
                          "is 3-D and always streams z (mode='fused')")
-    if mesh is not None:
-        raise _not_ported("mesh")
     shape = tuple(int(n) for n in shape)
     if len(shape) != spec.ndim:
         raise ValueError(f"{spec.name} is {spec.ndim}-D; got shape {shape}")
+    from repro_torch.api import sharded as _sharded
+    from repro_torch.launch.mesh import Mesh
+    if device is None and isinstance(mesh, Mesh):
+        device = mesh.devices.flat[0]
     device = resolve_device(device)
+    mesh = _sharded.resolve_mesh(mesh, spec.ndim, device)
     hw = hw or rl.hardware_for(device)
     boundary = ZERO if boundary is None else boundary
     cdtype = resolve_compute_dtype(dtype, compute_dtype)
     itemsize = torch.empty((), dtype=cdtype).element_size()
     kernel_spec = lift_2d_to_3d(spec) if mode == "stream" else spec
+    plan_shape = shape
+    if mesh is not None:
+        # shard uniformity first (the depth-1 halo fit is a subset of the
+        # full-depth check below), then the per-shard planning pass: each
+        # device is one big tile — plan for the shard it owns
+        _sharded.validate_mesh_for(spec, shape, mesh, 1, boundary)
+        plan_shape = _sharded.shard_extents(shape, mesh)
     plan = plan_bucketed(kernel_spec, kernel_view(spec, kernel_spec,
-                                                  shape)[0], hw, itemsize)
+                                                  plan_shape)[0], hw,
+                         itemsize)
     depth = t if t is not None else plan.t
     if depth < 1:
         raise ValueError(f"temporal depth must be >= 1, got {depth}")
     boundary.validate_for(spec, t=depth)
+    if mesh is not None:
+        _sharded.validate_mesh_for(spec, shape, mesh, depth, boundary)
     key = (spec, shape, dtype, depth, hw.name, boundary, mode,
-           _plan_key(plan), cdtype, str(device))
+           _plan_key(plan), cdtype, str(device), _sharded.mesh_key(mesh))
     cached = PROGRAM_CACHE.get(key)
     if cached is not None:
         return cached
     prog = StencilProgram(key, spec, shape, dtype, depth, plan, hw,
-                          boundary, mode, device, cdtype, kernel_spec)
+                          boundary, mode, device, cdtype, kernel_spec, mesh)
     prog.geometry()     # refuse a depth whose tile cannot fit, here
     PROGRAM_CACHE.put(key, prog)
     return prog

@@ -3,7 +3,7 @@
 The port keeps its own copy because the reference's ``configs/base.py``
 imports jax.  Field names and defaults are the reference's; dtypes are
 ``torch`` dtypes.  The sharding helpers (``with_mesh``, ``input_specs``,
-``input_pspecs``) are not ported: sharding is ROADMAP Queue 1 item 8.
+``input_pspecs``) are not ported: LM sharding is ROADMAP Queue 1 item 8b.
 The mesh hint fields stay, as data, so a config means the same in both
 packages.
 """

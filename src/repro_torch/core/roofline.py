@@ -4,7 +4,8 @@ port's hardware model: one NVIDIA H100.
 The port's own copy of the roofline math in the reference's
 ``repro.core.roofline`` (``HardwareModel``, ``attainable``,
 ``desired_depth``, ``desired_depth_device_tiled``, ``min_tile_width``,
-``spec_cost_summary``; the equations are the paper's):
+``spec_cost_summary``, ``halo_exchange_time``; the equations are the
+paper's):
 
     T_gm  = a_gm · D_gm / B_gm · S_cell                     (Eq 2)
     T_sm  = a_sm · D_sm · t / B_sm · S_cell                 (Eq 3)
@@ -40,11 +41,15 @@ class HardwareModel:
     thr_cmp_fp64: float = 0.0     # FLOP/s outside the tensor cores, fp64
     sm_count: int = 0
     l2_bytes: float = 0.0
+    # --- interconnect, for the halo exchange of sharded runs ---
+    b_ici: float = 0.0   # per-link bandwidth between devices, B/s
+    ici_links: int = 0   # links per device usable for halo exchange
 
 
 # NVIDIA H100 SXM5 datasheet: 3.35 TB/s HBM3, 67 / 34 TFLOP/s fp32 / fp64
 # (non-tensor), 132 SMs, 227 KB (232,448 B) of opt-in shared memory per
-# block, 50 MB L2.
+# block, 50 MB L2, and fourth-generation NVLink: 900 GB/s per GPU over 18
+# links, 50 GB/s a link (both directions together).
 H100 = HardwareModel(
     name="h100-sxm5-datasheet",
     b_gm=3.35e12,
@@ -56,6 +61,8 @@ H100 = HardwareModel(
     thr_cmp_fp64=34e12,
     sm_count=132,
     l2_bytes=50e6,
+    b_ici=50e9,               # datasheet: 900 GB/s over 18 NVLink links
+    ici_links=18,
 )
 
 
@@ -167,6 +174,22 @@ def min_tile_width(spec: StencilSpec, hw: HardwareModel, *,
     sub-dominant."""
     a_sm = spec.a_sm_rst if rst else spec.a_sm
     return 4 * spec.a_gm * hw.b_sm / (a_sm * hw.b_gm) * spec.radius
+
+
+# --------------------------------------------------- distributed extension ---
+def halo_exchange_time(spec: StencilSpec, t: int, hw: HardwareModel,
+                       shard_shape: tuple[int, ...],
+                       n_neighbors: int = 2) -> float:
+    """Beyond-paper: link time for a deep-halo (t·rad) exchange, amortized
+    over the t steps it buys.  Exchanging once per t steps divides the
+    per-step exchange cost by t — EBISU's sync amortization applied
+    across devices.  On the H100 model the links are NVLink's (datasheet
+    figures); shards that share one card copy on the device instead."""
+    if hw.b_ici <= 0:
+        return 0.0
+    face = math.prod(shard_shape[1:]) if len(shard_shape) > 1 else 1
+    halo_cells = spec.halo(t) * face * n_neighbors
+    return halo_cells * hw.s_cell / (hw.b_ici * max(1, hw.ici_links // 2))
 
 
 def spec_cost_summary(spec: StencilSpec, hw: HardwareModel = H100) -> dict:

@@ -52,7 +52,7 @@ def run(arch: str, *, batch: int = 4, prompt_len: int = 32,
     if n_data * n_model > 1:
         raise NotImplementedError(
             "sharded serving is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 8 (use n_data = n_model = 1)")
+            "Queue 1 item 8b (use n_data = n_model = 1)")
     cfg = C.get_config(arch)
     if reduced:
         cfg = cfg.reduced()

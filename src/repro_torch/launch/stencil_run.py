@@ -8,6 +8,12 @@ stencils and coupled systems, end to end.
         [--normalize] [--name mine] [--t 2] [--out y.npy]
     python -m repro_torch.launch.stencil_run --spec-json my_stencil.json
     python -m repro_torch.launch.stencil_run --system gray-scott --t 4
+    python -m repro_torch.launch.stencil_run --stencil j2d5pt --mesh 2x2 \\
+        [--T 25] [--device cpu]
+    python -m repro_torch.launch.stencil_run --stencil j2d5pt --distributed
+    python -m repro_torch.launch.stencil_run --stencil j2d5pt \\
+        --checkpoint-dir ck --T 24 [--every 2] [--resume auto] \\
+        [--kill-after-leg 2] [--out y.npy]
 
 For each stencil it compiles a program on a Table-2 domain cut by
 ``--scale`` (``--scale 1`` is the paper's own domain), runs one sweep of
@@ -18,11 +24,23 @@ asserts it is below 1e-4.  A custom stencil (``--taps`` or
 ``[spec]`` line of its derived §5 cost model (on the H100 datasheet
 model); ``--out`` saves the final field with ``np.save``.  ``--system``
 runs a coupled system's fused chain and checks it against the unfused
-lockstep reference.  ``--device`` defaults to the card.
+lockstep reference.  ``--mesh ZxY`` compiles the program onto a device
+mesh and runs ``T`` steps through ``run_sharded`` — deep ghost zones
+exchanged once per temporal block — checked against the oracle; the
+mesh takes the shards it needs: CPU shards with ``--device cpu``, the
+visible GPUs cycled on the card (on one card, every shard on
+``cuda:0``).  ``--distributed`` runs the older plain scheme of
+``core/distributed.py`` over one shard per visible GPU (one CPU shard
+with ``--device cpu``).  ``--checkpoint-dir`` runs the steps as a
+checkpointed resumable campaign (``--every`` temporal blocks a leg,
+``--resume auto|never|always``); ``--kill-after-leg K`` SIGKILLs the
+process once leg K's checkpoint has landed (exit 137), for
+crash-restart tests.  ``--device`` defaults to the card.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -35,6 +53,18 @@ from repro_torch.core import roofline as rl
 from repro_torch.core.stencil_spec import TABLE2, StencilSpec, get
 from repro_torch.kernels import ref
 from repro_torch.stencils.data import init_domain, reduced_domain
+
+
+def parse_mesh(text: str) -> tuple[int, ...]:
+    """'8' | '2x4' | '2,4' → mesh shape tuple (axis k shards tensor dim k)."""
+    try:
+        shape = tuple(int(p) for p in text.replace(",", "x").split("x"))
+        if not shape or any(n < 1 for n in shape):
+            raise ValueError
+        return shape
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"bad mesh {text!r}; use an int ('8') or a shape ('2x4')")
 
 
 def parse_boundary(text: str) -> Boundary:
@@ -112,6 +142,177 @@ def run_single(spec: StencilSpec | str, *, t: int | None = None,
     return y
 
 
+def _mesh_for(mesh_shape, device):
+    """The stencil mesh of ``mesh_shape``, granting the shards it needs:
+    CPU shards with ``device="cpu"``, else the visible GPUs cycled."""
+    from repro_torch.core.device import resolve_device
+    from repro_torch.launch.mesh import ensure_fake_devices, make_stencil_mesh
+
+    device = resolve_device(device)
+    n = math.prod(mesh_shape)
+    return make_stencil_mesh(mesh_shape, devices=ensure_fake_devices(
+        n, "cpu" if device.type == "cpu" else "cuda"))
+
+
+def _mesh_domain(spec: StencilSpec, mesh_shape, scale: int,
+                 t: int | None) -> tuple[int, ...]:
+    """The reduced domain, each sharded dim rounded up to uniform shards
+    wide enough for the block halo."""
+    shape = list(reduced_domain(spec, scale))
+    for d, n in enumerate(mesh_shape):
+        min_shard = (t or 2) * spec.radius + 1
+        shape[d] = n * max(-(-shape[d] // n), min_shard)
+    return tuple(shape)
+
+
+def run_sharded(spec: StencilSpec | str, mesh_shape: tuple[int, ...], *,
+                t: int | None = None, scale: int = 64,
+                boundary: Boundary | None = None, total_t: int | None = None,
+                device=None, check: bool = True) -> torch.Tensor:
+    """Drive ``compile_stencil(..., mesh=)`` + ``run_sharded`` end to end:
+    shard the domain over the mesh, run ``T`` steps with one deep-halo
+    exchange per temporal block, and (optionally) check against the
+    per-step oracle.  Domain dims are rounded up to shard uniformly."""
+    from repro_torch.api import planned_exchange_rounds
+    from repro_torch.core.distributed import ppermute
+    from repro_torch.launch.mesh import device_summary
+
+    spec = get(spec) if isinstance(spec, str) else spec
+    boundary = boundary or Boundary.dirichlet(0.0)
+    shape = _mesh_domain(spec, mesh_shape, scale, t)
+    if t is None:
+        # default depth: run_single's cap, further bounded so the block
+        # halo t*radius fits inside one shard (one neighbour hop)
+        caps = [shape[d] // n // spec.radius
+                for d, n in enumerate(mesh_shape) if n > 1]
+        cap = min(caps) - (boundary.kind == "reflect") if caps else 6
+        t = max(1, min(6, cap))
+    mesh = _mesh_for(mesh_shape, device)
+    prog = compile_stencil(spec, shape, t=t, boundary=boundary, mesh=mesh)
+    total = total_t if total_t is not None else 2 * prog.t + 1
+    x = init_domain(spec, shape, device=prog.device)
+    t0 = time.perf_counter()
+    before = ppermute.calls
+    y = prog.run_sharded(x, total)
+    copies = ppermute.calls - before
+    _sync(prog.device)
+    dt = time.perf_counter() - t0
+    rounds = planned_exchange_rounds(total, prog.t)
+    line = (f"[sharded] {spec.name:11s} domain={shape} "
+            f"mesh={'x'.join(map(str, mesh_shape))} "
+            f"devices={device_summary(mesh.devices.flat)} T={total} "
+            f"t={prog.t} exchanges={rounds} (vs {total} per-step) "
+            f"ppermutes={copies} {dt * 1e3:.1f}ms")
+    if check:
+        want = ref.reference(x, spec, total, boundary=boundary)
+        err = float((y - want).abs().max())
+        line += f" maxerr={err:.2e}"
+        assert err < 1e-4, line
+    print(line, flush=True)
+    return y
+
+
+def run_campaign_cli(spec: StencilSpec | str, *, checkpoint_dir: str,
+                     mesh_shape: tuple[int, ...] | None = None,
+                     t: int | None = None, scale: int = 64,
+                     boundary: Boundary | None = None,
+                     total_t: int | None = None, every: int = 1,
+                     resume: str = "auto", kill_after_leg: int | None = None,
+                     out: str | None = None, device=None):
+    """Drive a checkpointed campaign: ``T`` steps as legs of ``every``
+    temporal blocks, checkpointing into ``checkpoint_dir``, resumable
+    after a crash and bit-exact equal to the uninterrupted run.
+    ``kill_after_leg`` SIGKILLs the process after that leg's checkpoint
+    lands — the crash-restart smoke:
+
+        python -m repro_torch.launch.stencil_run --stencil j2d5pt \\
+            --checkpoint-dir /tmp/ck --T 24 --kill-after-leg 2  # dies (137)
+        python -m repro_torch.launch.stencil_run --stencil j2d5pt \\
+            --checkpoint-dir /tmp/ck --T 24 --resume auto --out y.npy
+    """
+    from repro_torch.resilient import CampaignStore
+
+    spec = get(spec) if isinstance(spec, str) else spec
+    boundary = boundary or Boundary.dirichlet(0.0)
+    if mesh_shape:
+        shape = _mesh_domain(spec, mesh_shape, scale, t)
+        prog = compile_stencil(spec, shape, t=t or 2, boundary=boundary,
+                               mesh=_mesh_for(mesh_shape, device))
+    else:
+        shape = reduced_domain(spec, scale)
+        prog = compile_stencil(spec, shape, t=t, boundary=boundary,
+                               device=device)
+    total = total_t if total_t is not None else 2 * prog.t + 1
+    x = init_domain(spec, shape, device=prog.device)
+    store = CampaignStore(checkpoint_dir)
+    on_leg = None
+    if kill_after_leg is not None:
+        import os
+        import signal
+
+        def on_leg(leg, steps_done):
+            if leg >= kill_after_leg:
+                store.wait()     # the landed checkpoint survives the kill
+                print(f"[campaign] injected crash after leg {leg} "
+                      f"({steps_done}/{total} steps)", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+    t0 = time.perf_counter()
+    runner = (prog.run_sharded_resumable if mesh_shape
+              else prog.run_resumable)
+    rep = runner(x, total, store=store, every=every, resume=resume,
+                 on_leg=on_leg)
+    _sync(prog.device)
+    dt = time.perf_counter() - t0
+    resumed = (f" resumed@leg{rep.resumed_from}"
+               if rep.resumed_from is not None else "")
+    print(f"[campaign] {spec.name:11s} domain={shape} T={total} "
+          f"t={prog.t} legs={rep.legs_total} every={every}"
+          f"{resumed} ckpts={rep.checkpoints_written} "
+          f"rms={rep.final_rms:.4g} device={prog.device} "
+          f"{dt * 1e3:.1f}ms", flush=True)
+    if out:
+        np.save(out, rep.result.cpu().numpy())
+        print(f"[campaign] final field -> {out}", flush=True)
+    return rep
+
+
+def run_distributed(name: str, *, t_total: int = 4, t_block: int = 2,
+                    scale: int = 64, shards: int | None = None,
+                    device=None) -> torch.Tensor:
+    """The older plain scheme (``core/distributed.make_distributed_stencil``)
+    over a 1-D mesh of ``shards`` devices sharding dim 0: by default one
+    shard per visible GPU, or one CPU shard with ``device="cpu"``."""
+    from repro_torch.core.device import resolve_device
+    from repro_torch.core.distributed import make_distributed_stencil
+    from repro_torch.launch.mesh import device_summary, make_mesh
+
+    spec = get(name)
+    device = resolve_device(device)
+    if shards is None:
+        shards = 1 if device.type == "cpu" else torch.cuda.device_count()
+    devices = ([device] * shards if device.type == "cpu" or shards == 1
+               else None)
+    mesh = make_mesh((shards,), ("data",), devices=devices)
+    shape = list(reduced_domain(spec, scale))
+    shape[0] = (shape[0] + shards - 1) // shards * shards
+    fn, layout = make_distributed_stencil(spec, mesh, {0: "data"},
+                                          tuple(shape), t_total, t_block)
+    x = init_domain(spec, tuple(shape), device=device)
+    t0 = time.perf_counter()
+    y = layout.assemble(fn(layout.split(x)), device)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    want = ref.reference(x, spec, t_total)
+    err = float((y - want).abs().max())
+    print(f"[stencil-dist] {name:11s} domain={tuple(shape)} shards={shards} "
+          f"devices={device_summary(mesh.devices.flat)} "
+          f"t={t_total}(x{t_block}) {dt * 1e3:.1f}ms maxerr={err:.2e}",
+          flush=True)
+    assert err < 1e-4
+    return y
+
+
 def run_system_cli(name: str, *, t: int | None = None, scale: int = 64,
                    boundary: Boundary | None = None,
                    total_t: int | None = None, check: bool = True,
@@ -155,16 +356,6 @@ def run_system_cli(name: str, *, t: int | None = None, scale: int = 64,
     return out
 
 
-# flags of the reference's CLI whose paths are not ported yet
-_LATER = {"mesh": "ROADMAP Queue 1 item 8 (sharded deep-halo execution)",
-          "distributed": "ROADMAP Queue 1 item 8 (sharded deep-halo "
-                         "execution)",
-          "checkpoint_dir": "ROADMAP Queue 1 item 10 (resilient campaigns)",
-          "resume": "ROADMAP Queue 1 item 10 (resilient campaigns)",
-          "every": "ROADMAP Queue 1 item 10 (resilient campaigns)",
-          "kill_after_leg": "ROADMAP Queue 1 item 10 (resilient campaigns)"}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stencil", default="all",
@@ -187,26 +378,46 @@ def main(argv=None):
                          " a --system domain's extent")
     ap.add_argument("--boundary", type=parse_boundary, default=None,
                     metavar="dirichlet[:v]|periodic|reflect|neumann[:flux]")
+    ap.add_argument("--mesh", type=parse_mesh, default=None,
+                    metavar="N|ZxY",
+                    help="device mesh for run_sharded (axis k shards dim "
+                         "k): CPU shards with --device cpu, the visible "
+                         "GPUs cycled on the card")
     ap.add_argument("--T", type=int, default=None, dest="total_t",
-                    help="total steps of a --system run (default 2*t+1)")
+                    help="total steps of a --system, --mesh or "
+                         "--checkpoint-dir run (default 2*t+1)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="the plain deep-halo scheme of "
+                         "core/distributed.py, one shard per visible GPU")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="run as a checkpointed resumable campaign into DIR")
+    ap.add_argument("--resume", default="auto",
+                    choices=("auto", "never", "always"),
+                    help="campaign resume mode (default auto: pick up the "
+                         "newest good checkpoint in --checkpoint-dir)")
+    ap.add_argument("--every", type=int, default=1, metavar="N",
+                    help="temporal blocks per campaign leg (default 1)")
+    ap.add_argument("--kill-after-leg", type=int, default=None, metavar="K",
+                    help="SIGKILL the process after leg K's checkpoint "
+                         "lands (crash-restart testing)")
     ap.add_argument("--out", default=None, metavar="FILE",
                     help="np.save the final field of one stencil to FILE")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the card")
-    for flag, kw in (("--mesh", {}), ("--distributed", dict(nargs="?",
-                                                            const=True)),
-                     ("--checkpoint-dir", {}), ("--resume", {}),
-                     ("--every", {}), ("--kill-after-leg", {})):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
-    for key, item in _LATER.items():
-        if getattr(args, key) is not None:
-            ap.error(f"--{key.replace('_', '-')} is not ported to "
-                     f"repro_torch yet: {item}")
     if args.taps and args.spec_json:
         ap.error("--taps and --spec-json are mutually exclusive")
+    if args.mesh and args.distributed:
+        ap.error("--mesh (run_sharded) and --distributed (the plain "
+                 "reference scheme) are mutually exclusive")
+    if args.checkpoint_dir and args.distributed:
+        ap.error("--checkpoint-dir (resumable campaigns) drives compiled "
+                 "programs; --distributed is the plain reference scheme")
+    if args.kill_after_leg is not None and not args.checkpoint_dir:
+        ap.error("--kill-after-leg needs --checkpoint-dir")
     if args.system:
-        if args.taps or args.spec_json or args.out:
+        if args.taps or args.spec_json or args.out or args.mesh \
+                or args.distributed or args.checkpoint_dir:
             ap.error("--system runs single-device fused system programs; "
                      "it composes with --t/--T/--scale/--boundary only")
         run_system_cli(args.system, t=args.t, scale=args.scale,
@@ -220,6 +431,9 @@ def main(argv=None):
         if not isinstance(spec, StencilSpec):
             ap.error("--spec-json holds a coupled system (a 'fields' "
                      "object); run a library system with --system")
+        if args.distributed:
+            ap.error("--distributed drives the Table-2 suite; custom specs "
+                     "run single-device (for now)")
         specs, summary = [spec], True
     else:
         names = (list(TABLE2) if args.stencil == "all"
@@ -227,10 +441,29 @@ def main(argv=None):
         specs, summary = names, False
     if args.out and len(specs) > 1:
         ap.error("--out saves one field: name one stencil")
+    if args.checkpoint_dir:
+        if len(specs) > 1:
+            ap.error("--checkpoint-dir runs one campaign: name one stencil")
+        run_campaign_cli(
+            specs[0], checkpoint_dir=args.checkpoint_dir,
+            mesh_shape=args.mesh, t=args.t, scale=args.scale,
+            boundary=args.boundary, total_t=args.total_t, every=args.every,
+            resume=args.resume, kill_after_leg=args.kill_after_leg,
+            out=args.out, device=args.device)
+        return
     for spec in specs:
-        y = run_single(spec, t=args.t, scale=args.scale,
-                       boundary=args.boundary, device=args.device,
-                       summary=summary)
+        if args.mesh:
+            if summary:
+                print(cost_summary_line(spec), flush=True)
+            y = run_sharded(spec, args.mesh, t=args.t, scale=args.scale,
+                            boundary=args.boundary, total_t=args.total_t,
+                            device=args.device)
+        elif args.distributed:
+            y = run_distributed(spec, scale=args.scale, device=args.device)
+        else:
+            y = run_single(spec, t=args.t, scale=args.scale,
+                           boundary=args.boundary, device=args.device,
+                           summary=summary)
     if args.out:
         np.save(args.out, y.cpu().numpy())
         print(f"[stencil] final field -> {args.out}", flush=True)

@@ -14,7 +14,7 @@ deterministic (seed, step) batches, prefetched on a host thread; every
 is saved blocking.  The LR schedule's horizon is ``schedule_steps``
 (default ``steps``), so a run cut short and resumed follows the same
 schedule.  It runs on the card unless ``--device cpu``; ``--n-data`` and
-``--n-model`` above 1 wait for sharding (ROADMAP Queue 1 item 8).
+``--n-model`` above 1 wait for LM sharding (ROADMAP Queue 1 item 8b).
 Reports per step the loss, LR and gradient norm; at the end the step
 time (CUDA events on the card, the host clock on the CPU; the first
 step, which builds the kernels, is left out when there are others),
@@ -63,7 +63,7 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     if n_data * n_model > 1:
         raise NotImplementedError(
             "sharded training is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 8 (use n_data = n_model = 1)")
+            "Queue 1 item 8b (use n_data = n_model = 1)")
     cfg = C.get_config(arch)
     if reduced:
         cfg = cfg.reduced()

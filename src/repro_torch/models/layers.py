@@ -14,7 +14,7 @@ casts is the reference's, because it decides the bf16 roundings:
 
 ``p`` is anything indexable by the reference's leaf names: a
 ``ParamModule`` or a dict of tensors.  The reference's ``shard`` is a
-no-op without a mesh and is not ported (ROADMAP Queue 1 item 8).
+no-op without a mesh and is not ported (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

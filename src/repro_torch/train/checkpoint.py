@@ -19,8 +19,8 @@ in the process, and ``save(block=True)`` (and :func:`wait`) joins every
 pending writer first.  In the reference a still-running async save of
 step N can remove and replace ``step_N`` after a blocking save of the
 same step has returned, so a restore right after it can find leaves
-missing.  Sharded (elastic) restore waits for sharding, ROADMAP Queue 1
-item 8.
+missing.  Sharded (elastic) restore waits for LM-side sharding, ROADMAP
+Queue 1 item 8b.
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ the reference tree's paths, so ``params_from_jax`` carries the
 reference's ``m`` and ``v`` across as it carries its parameters.
 
 The reference's ZeRO sharding of the moments (``zero_pspec``,
-``opt_state_defs``'s specs) waits for sharding, ROADMAP Queue 1 item 8:
-here the moments live beside the parameters on one device.
+``opt_state_defs``'s specs) waits for LM-side sharding, ROADMAP Queue 1
+item 8b: here the moments live beside the parameters on one device.
 """
 from __future__ import annotations
 

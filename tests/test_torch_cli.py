@@ -127,18 +127,23 @@ def test_table2_out_and_system_run(tmp_path, capsys):
     (["--taps", TAPS, "--spec-json", "x.json"], "mutually exclusive"),
     (["--system", "gray-scott", "--taps", TAPS], "--system runs"),
     (["--stencil", "j2d5pt,j2d9pt", "--out", "y.npy"], "one field"),
-    (["--mesh", "2"], "Queue 1 item 8"),
-    (["--distributed"], "Queue 1 item 8"),
-    (["--checkpoint-dir", "ck"], "Queue 1 item 10"),
-    (["--resume", "auto"], "Queue 1 item 10"),
-    (["--every", "2"], "Queue 1 item 10"),
-    (["--kill-after-leg", "1"], "Queue 1 item 10"),
+    # the mesh and campaign flags are ported: their ids hold the
+    # refusals of those flags that remain
+    (["--mesh", "2", "--distributed"], "mutually exclusive"),
+    (["--distributed", "--checkpoint-dir", "ck"], "drives compiled"),
+    (["--system", "gray-scott", "--checkpoint-dir", "ck"], "--system runs"),
+    (["--resume", "sometimes"], "invalid choice"),
+    (["--stencil", "j2d5pt,j2d9pt", "--checkpoint-dir", "ck", "--every",
+      "2"], "name one stencil"),
+    (["--kill-after-leg", "1"], "--kill-after-leg needs --checkpoint-dir"),
+    (["--taps", TAPS, "--distributed"], "custom specs run single-device"),
+    (["--system", "gray-scott", "--mesh", "2"], "--system runs"),
 ], ids=["taps-and-json", "system-and-taps", "out-of-two", "mesh",
         "distributed", "checkpoint-dir", "resume", "every",
-        "kill-after-leg"])
+        "kill-after-leg", "distributed-custom", "system-and-mesh"])
 def test_refusals(argv, message, capsys):
-    """The reference's ``ap.error`` refusals, and the flags whose paths
-    are not ported yet, each naming its ROADMAP item."""
+    """The reference's ``ap.error`` refusals (and the port's one for a
+    campaign of more than one stencil)."""
     with pytest.raises(SystemExit) as exc:
         stencil_run.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
@@ -152,3 +157,58 @@ def test_spec_json_with_fields_is_refused_as_a_stencil(tmp_path):
     path.write_text(json.dumps(system_to_json(get_system("gray-scott"))))
     with pytest.raises(SystemExit):
         stencil_run.main(["--spec-json", str(path), "--device", "cpu"])
+
+
+def test_mesh_run_against_reference_oracle(tmp_path, capsys):
+    """``--mesh 2x2 --device cpu``: four CPU shards, the ``[sharded]``
+    line with the devices and the exchange count, and ``--out`` within
+    2e-5 of the reference's per-step oracle on the same field."""
+    import jax.numpy as jnp
+
+    from repro.api.boundary import Boundary as RB
+    from repro.kernels import ref as jref
+
+    out = tmp_path / "y.npy"
+    stencil_run.main(["--stencil", "j2d9pt", "--mesh", "2x2", "--T", "7",
+                      "--boundary", "periodic", "--scale", SCALE,
+                      "--out", str(out), "--device", "cpu"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[sharded]"))
+    assert "mesh=2x2 devices=cpux4 T=7" in line
+    rounds = int(line.split("exchanges=")[1].split()[0])
+    assert f"ppermutes={rounds * 2 * 2}" in line
+    shape = tuple(int(n) for n in line.split("domain=(")[1].split(")")[0]
+                  .split(","))
+    spec = tspec.get("j2d9pt")
+    x = init_domain(spec, shape, device="cpu").numpy()
+    want = np.asarray(jref.reference_unrolled(
+        jnp.asarray(x), ref_spec.get("j2d9pt"), 7, boundary=RB.periodic()))
+    np.testing.assert_allclose(np.load(out), want, atol=TOL, rtol=TOL)
+
+
+def test_distributed_and_campaign_runs(tmp_path, capsys):
+    """``--distributed`` (one CPU shard, the oracle check inside), and a
+    two-leg-wide campaign whose ``--out`` equals the program's ``.run``
+    bit for bit."""
+    from repro_torch.api import compile_stencil
+    from repro_torch.stencils.data import reduced_domain
+
+    stencil_run.main(["--stencil", "j3d7pt", "--distributed", "--scale",
+                      "64", "--device", "cpu"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[stencil-dist]"))
+    assert "shards=1 devices=cpu" in line
+    assert float(line.split("maxerr=")[1]) < 1e-4
+    out = tmp_path / "c.npy"
+    stencil_run.main(["--stencil", "j2d5pt", "--checkpoint-dir",
+                      str(tmp_path / "ck"), "--every", "2", "--T", "9",
+                      "--t", "2", "--scale", SCALE, "--out", str(out),
+                      "--device", "cpu"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[campaign] j2d5pt"))
+    assert "T=9 t=2 legs=3 every=2" in line and "ckpts=4" in line
+    spec = tspec.get("j2d5pt")
+    shape = reduced_domain(spec, int(SCALE))
+    prog = compile_stencil(spec, shape, t=2, device="cpu")
+    want = prog.run(init_domain(spec, shape, device="cpu"), 9)
+    assert (np.load(out) == want.numpy()).all()

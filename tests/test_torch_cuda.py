@@ -1168,3 +1168,83 @@ def test_reduced_train_step_on_card_launch_counts(cuda_device):
     for n, p in params["flash_pallas"].items():
         torch.testing.assert_close(p, params["flash_jnp"][n], atol=2e-4,
                                    rtol=2e-4)
+
+
+# ---- sharded runs and campaigns on the card ---------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,boundary", [
+    ("j2d5pt", (96, 128), Boundary.dirichlet(0.0)),
+    ("j2d9pt", (96, 128), Boundary.periodic()),
+    ("j2d5pt", (96, 128), Boundary.reflect()),
+    ("j3d7pt", (32, 24, 40), Boundary.dirichlet(0.0)),
+])
+def test_sharded_one_card_mesh(cuda_device, name, shape, boundary):
+    """A (2, 2) mesh of ``cuda:0`` × 4: every shard and slab stays on the
+    card, no stencil kernel launches, the exchange counter reads one
+    round per block, and the result is within 2e-5 of ``.run`` (and bit
+    for bit a second run); a mesh of size 1 is ``.run``, launches
+    included."""
+    from repro_torch.api import planned_exchange_rounds
+    from repro_torch.core.distributed import ppermute
+    from repro_torch.launch.mesh import make_stencil_mesh
+
+    spec = tspec.get(name)
+    x = field(shape).to(cuda_device)
+    mesh = make_stencil_mesh((2, 2), devices=[cuda_device] * 4)
+    prog = compile_stencil(spec, shape, t=3, mesh=mesh, boundary=boundary)
+    single = compile_stencil(spec, shape, t=3, boundary=boundary)
+    launches = (st.ebisu2d_padded.launches, st3.ebisu3d_padded.launches)
+    calls = ppermute.calls
+    got = prog.run_sharded(x, 7)
+    torch.cuda.synchronize()
+    assert (st.ebisu2d_padded.launches, st3.ebisu3d_padded.launches) == \
+        launches
+    assert ppermute.calls - calls == planned_exchange_rounds(7, 3) * 2 * 2
+    assert got.device == x.device
+    assert torch.equal(got, prog.run_sharded(x, 7))
+    torch.testing.assert_close(got, single.run(x, 7), atol=2e-5, rtol=2e-5)
+    one = compile_stencil(spec, shape, t=3, boundary=boundary,
+                          mesh=make_stencil_mesh((1, 1),
+                                                 devices=[cuda_device]))
+    before = st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+    assert torch.equal(one.run_sharded(x, 7), single.run(x, 7))
+    torch.cuda.synchronize()
+    assert (st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+            - before) == 2 * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("j2d5pt", (96, 128)),
+                                        ("j3d7pt", (32, 24, 40))])
+def test_card_campaign_bitexact(cuda_device, tmp_path, name, shape):
+    """A campaign on the card crashed after leg 2 and resumed equals
+    ``.run`` bit for bit, and launches one kernel a sweep of its legs."""
+    from repro_torch.api import sweep_schedule
+    from repro_torch.resilient import (CampaignStore, leg_schedule,
+                                       resume_campaign)
+
+    spec = tspec.get(name)
+    x = field(shape).to(cuda_device)
+    prog = compile_stencil(spec, shape, t=3)
+    want = prog.run(x, 11)
+    store = CampaignStore(str(tmp_path))
+
+    class Crash(Exception):
+        pass
+
+    def crash(leg, steps_done):
+        if leg == 2:
+            store.wait()
+            raise Crash()
+
+    before = st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+    with pytest.raises(Crash):
+        prog.run_resumable(x, 11, store=store, on_leg=crash)
+    rep = resume_campaign(prog, store)
+    torch.cuda.synchronize()
+    assert rep.result.device == x.device and torch.equal(rep.result, want)
+    legs = leg_schedule(11, 3)
+    sweeps = sum(len(sweep_schedule(n, 3)) for _, n in legs)
+    # legs 1-2 before the crash, 3-4 after it: no leg runs twice
+    assert (st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+            - before) == sweeps

@@ -150,29 +150,45 @@ def test_no_device_without_cuda_raises(monkeypatch):
         compile_stencil(tspec.get("j2d5pt"), SHAPE)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16),
-                            device="cpu").run_sharded(
-                                torch.zeros((16, 16, 16)), 4),
-    lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="stream",
-                            device="cpu").run_sharded(torch.zeros(SHAPE), 4),
-    lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="tuned",
-                            device="cpu"),
-    lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mesh=(2, 1),
-                            device="cpu"),
-    lambda: _prog().run_sharded(torch.zeros(SHAPE), 4),
-    lambda: _prog().run_resumable(torch.zeros(SHAPE), 4, store=None),
-    # run_batched and run_padded are ported: their ids now hold the
-    # refusals that remain on a 3-D program
-    lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16),
-                            device="cpu").run_resumable(
-                                torch.zeros((16, 16, 16)), 4, store=None),
-    lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), mode="tuned",
-                            device="cpu"),
+@pytest.mark.parametrize("call,exc,match", [
+    # mesh=, run_sharded and the campaigns are ported: these ids now hold
+    # the refusals of those paths that remain
+    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16),
+                             device="cpu").run_sharded(
+                                 torch.zeros((16, 16, 16)), 4),
+     ValueError, "mesh-compiled"),
+    (lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="stream",
+                             device="cpu").run_sharded(torch.zeros(SHAPE),
+                                                       4),
+     ValueError, "mesh-compiled"),
+    (lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="tuned",
+                             device="cpu"),
+     NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (lambda: compile_stencil(tspec.get("j2d5pt"), (36, 53), mode="tuned",
+                             mesh=(2, 1), device="cpu"),
+     NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (lambda: _prog().run_sharded_resumable(torch.zeros(SHAPE), 4,
+                                           store=None),
+     ValueError, "mesh-compiled"),
+    (lambda: _prog().run_resumable(torch.zeros(SHAPE), 4, store=None,
+                                   every=0),
+     ValueError, "every must be >= 1"),
+    # run_batched and run_padded are ported: their ids hold refusals on a
+    # 3-D program (neumann under a mesh; mode="tuned")
+    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), t=1,
+                             mesh=(2, 1), boundary=Boundary.neumann(),
+                             device="cpu"),
+     ValueError, "does not support neumann"),
+    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), mode="tuned",
+                             device="cpu"),
+     NotImplementedError, "ROADMAP Queue 1 item 12"),
 ], ids=["3d", "stream", "tuned", "mesh", "run_sharded", "run_resumable",
         "run_batched", "run_padded"])
-def test_refusals_name_the_roadmap_item(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_refusals_name_the_roadmap_item(call, exc, match):
+    """What the port still refuses: ``mode="tuned"`` names its ROADMAP
+    item; the sharded and campaign paths refuse what the reference
+    refuses."""
+    with pytest.raises(exc, match=match):
         call()
 
 

@@ -146,6 +146,26 @@ def same_hardware(hw_ref):
                                 if hasattr(hw_ref, f.name)})
 
 
+@pytest.mark.parametrize("hw_name", ["A100_FP64", "TPU_V5E"])
+@pytest.mark.parametrize("name,shard", [
+    ("j2d5pt", (4176, 4176)), ("j2d25pt", (64,)),
+    ("j3d7pt", (1280, 144, 384)), ("j3d27pt", (16, 8, 12))])
+def test_halo_exchange_time_matches_reference(name, shard, hw_name):
+    """``halo_exchange_time`` equals the reference's given the same
+    constants (zero without links); on the port's H100 model it is the
+    datasheet NVLink time."""
+    hw_ref = getattr(ref_rl, hw_name)
+    hw = same_hardware(hw_ref)
+    ref, mine = ref_spec.get(name), tspec.get(name)
+    for t in (1, 4, 12):
+        for n in (1, 2):
+            assert trl.halo_exchange_time(mine, t, hw, shard, n) == \
+                ref_rl.halo_exchange_time(ref, t, hw_ref, shard, n)
+    face = math.prod(shard[1:]) if len(shard) > 1 else 1
+    assert trl.halo_exchange_time(mine, 4, trl.H100, shard) == (
+        mine.halo(4) * face * 2 * 4 / (50e9 * 9))
+
+
 CUSTOM = {"asym": [((0, 0), 0.6), ((0, 1), 0.15), ((0, -1), 0.05),
                    ((1, 0), 0.1), ((-1, 0), 0.1)],
           "box3": [((0, 0, 0), 2.0), ((1, 1, 1), 1.0), ((-1, 0, 1), 1.0)]}
@@ -240,6 +260,11 @@ def test_import_gate():
         import repro_torch.systems, repro_torch.systems.spec
         import repro_torch.systems.reactions, repro_torch.systems.library
         import repro_torch.systems.program
+        import repro_torch.api.sharded, repro_torch.core.distributed
+        import repro_torch.launch.mesh, repro_torch.faults
+        import repro_torch.resilient, repro_torch.resilient.health
+        import repro_torch.resilient.policy, repro_torch.resilient.store
+        import repro_torch.resilient.runner
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
