@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py lm   # phases alone: 2d 3d sharded campaign
-                               # systems lm train
+                               # serve tune systems lm train
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
@@ -46,6 +46,24 @@ in its own counted run:
   2560×288×384 (t = 8, 17 steps: fresh, crashed and resumed), f32,
   checkpoints in a temporary directory removed afterwards; the launches
   must equal the sweeps of the legs run, exactly;
+* serve (``stencil2d``, ``stencil3d``): the stencil service
+  (``repro_torch.serve.stencil_service``): 8 j2d5pt requests at 8352²
+  (t = 12, 25 steps) from four tenants coalesced by ``ServiceCore`` into
+  one ``run_batched``, which must launch 3 sweeps for all of them (a
+  loop of ``.run`` launches 24), the same at 512², then 2 j3d7pt
+  requests at 2560×288×384 (t = 8, 17 steps: 3 launches against 6),
+  f32, each result within 1e-4 of its field's ``.run``, with p50/p99
+  latency, requests/s and the coalesced ms beside the loop's and its
+  parts timed alone; the seeded faulty tape of
+  ``launch/serve_stencil.py`` (200 requests, seed 7) and 32 requests
+  through the asyncio front door, every request resolved;
+* tune (``stencil2d``, ``stencil3d``): ``repro_torch.tuning.tune`` of
+  j2d5pt at 8352² and j3d7pt at 2560×288×384, budget 64 timing calls
+  (CUDA events) into a plan DB in a temporary directory, the winner's
+  ``.run`` timed beside the analytic seed's and held to the oracle
+  (< 1e-4), its launches counted; then ``python -m repro_torch.tuning
+  check`` in a second process must hit both records with zero timing
+  calls;
 * systems (no kernel): the three coupled systems of
   ``repro_torch.systems`` at 512², periodic and Neumann, on the card
   against the same programs on the CPU in float64, then timed at 4096²
@@ -289,12 +307,14 @@ def main() -> int:
                 frames.values()), f"{lib} {name}: spill stores or a "
                 "stack frame")
 
-    every = ["2d", "3d", "sharded", "campaign", "systems", "lm", "train"]
+    every = ["2d", "3d", "sharded", "campaign", "serve", "tune", "systems",
+             "lm", "train"]
     phases = sys.argv[1:] or every
     check(set(phases) <= set(every), f"unknown phases {phases}; pass any "
           f"of {' '.join(every)}, or none for all")
     run = {"2d": lambda: two_d(dev), "3d": lambda: three_d(dev, held),
            "sharded": lambda: sharded(dev), "campaign": lambda: campaign(dev),
+           "serve": lambda: serve(dev), "tune": lambda: tune(dev),
            "systems": lambda: systems(dev),
            "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev)}
     entries = []
@@ -1399,6 +1419,254 @@ def campaign(dev) -> None:
                        campaign_over_run=ms / run_ms,
                        route="the stencil kernel, one launch a sweep")
             print("[timing] " + json.dumps(row), flush=True)
+
+
+# (stencil, t, steps, requests, domain: None for the paper's); the small
+# j2d5pt domain is where a sweep's GPU time no longer hides the host's
+# per-launch work, which coalescing shares among the requests
+SERVE_CASES = (("j2d5pt", 12, 25, 8, None), ("j2d5pt", 12, 25, 8, (512, 512)),
+               ("j3d7pt", 8, 17, 2, None))
+SERVE_TENANTS = ("alice", "bob", "carol", "dave")
+SERVE_TOL = 1e-4                        # f32, a served result vs .run
+
+
+def serve(dev) -> None:
+    """The stencil service on the card (``repro_torch.serve``), f32.
+
+    (a) Coalescing: requests for one stencil from four tenants through
+    ``ServiceCore`` on the monotonic clock, ``max_batch`` 8 and
+    ``max_cells`` raised to the paper's domain: 8 j2d5pt fields at 8352²
+    (t = 12, 25 steps), the same at 512², then 2 j3d7pt fields at
+    2560×288×384 (t = 8, 17 steps).  Counted: the batch launches one
+    sweep for all of them (3), against 3 a field for a loop of
+    ``.run``; each result within 1e-4 of its field's ``.run``; the counted (first) pass's p50 latency,
+    then p50/p99 latency and requests/s of a warm pass, and the
+    coalesced pass's ms beside the loop's (CUDA events, median of 3),
+    with its parts timed alone: the stack of the fields, the batched
+    chain and the guard's finiteness reduction.  (b) The seeded faulty
+    tape (``launch.serve_stencil.run(200, faults=True, seed=7)``)
+    resolves every request.  (c) 32 requests through the asyncio front door
+    (``StencilService``, dispatches on worker threads) all resolve."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.api import compile_stencil, sweep_schedule
+    from repro_torch.core.stencil_spec import get
+    from repro_torch.faults import MonotonicClock
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import serve_stencil
+    from repro_torch.serve.stencil_service import (ServeRequest,
+                                                   ServiceConfig,
+                                                   ServiceCore)
+    from repro_torch.stencils.data import init_domain
+
+    for name, t, steps, n, domain in SERVE_CASES:
+        spec = get(name)
+        shape = domain or spec.domain
+        wrapper, other = ((st.ebisu2d_padded, st3.ebisu3d_padded)
+                          if spec.ndim == 2 else
+                          (st3.ebisu3d_padded, st.ebisu2d_padded))
+        # every request is in before the first poll, so the batch needs no
+        # window: a window would only sleep on the monotonic clock
+        cfg = ServiceConfig(max_batch=8, batch_window_ms=0.0,
+                            max_cells=math.prod(shape), max_queue=64,
+                            max_inflight_per_tenant=64, device=str(dev))
+        xs = [init_domain(spec, shape, device=dev, seed=i)
+              for i in range(n)]
+
+        def served():
+            core = ServiceCore(cfg, clock=MonotonicClock())
+            tks = [core.submit(ServeRequest(
+                spec, x, total_t=steps, t=t,
+                tenant=SERVE_TENANTS[i % len(SERVE_TENANTS)]))
+                for i, x in enumerate(xs)]
+            core.drain()
+            return core, tks
+
+        sweeps = len(sweep_schedule(steps, t))
+        zero_counts()
+        core, tks = served()
+        torch.cuda.synchronize()
+        launched, stray = wrapper.launches, other.launches
+        stats = core.stats()
+        what = f"{name} " + "x".join(str(d) for d in shape)
+        print(f"[main path] serve {what} {n} requests x {steps} steps "
+              f"(t={t}) from {min(n, len(SERVE_TENANTS))} tenants: "
+              f"{wrapper.__name__} launches {launched}, "
+              f"{other.__name__} {stray}; batches {stats['batches']}",
+              flush=True)
+        check(all(tk.ok for tk in tks), f"serve {what}: a request failed: "
+              f"{[tk.error for tk in tks if not tk.ok]}")
+        check(all(tk.batched_width == n for tk in tks),
+              f"serve {what}: not one batch of {n}")
+        check(launched == sweeps and stray == 0,
+              f"serve {what}: {launched} launches, want {sweeps} (one a "
+              "sweep for the whole batch)")
+        prog = compile_stencil(spec, shape, t=t)
+        err = 0.0
+        for i, (x, tk) in enumerate(zip(xs, tks)):
+            err = max(err, held(tk.result(), prog.run(x, steps), SERVE_TOL,
+                                f"serve {what} request {i} vs .run"))
+        del tks, core
+        zero_counts()
+        loop = [prog.run(x, steps) for x in xs]
+        torch.cuda.synchronize()
+        check(wrapper.launches == n * sweeps,
+              f"serve {what}: a loop of .run launched {wrapper.launches}")
+        print(f"[check] serve {what}: {launched} launches for the batch "
+              f"against {wrapper.launches} for a loop of .run; max|err| "
+              f"vs .run {err:.3e}", flush=True)
+        del loop
+        coalesced_ms = median_ms(served, 3, 0)
+        looped_ms = median_ms(lambda: [prog.run(x, steps) for x in xs], 3, 1)
+        warm = served()[0].stats()
+        # the coalesced pass's parts, each alone: the stack of the fields,
+        # the batched chain, the guard's one finiteness reduction
+        stack_ms = median_ms(lambda: torch.stack(xs), 3, 1)
+        xb = torch.stack(xs)
+        batched_ms = median_ms(lambda: prog.run_batched(xb, steps), 3, 1)
+        yb = prog.run_batched(xb, steps)
+        def finite_rows():
+            lo, hi = torch.aminmax(yb.reshape(n, -1), dim=1)
+            return (lo.isfinite() & hi.isfinite()).tolist()
+
+        finite_ms = median_ms(finite_rows, 3, 1)
+        del xb, yb
+        row = dict(stencil=what, requests=n, steps=steps, t=t,
+                   domain=list(shape), batch_launches=launched,
+                   loop_launches=n * sweeps,
+                   first_p50_latency_ms=stats["p50_latency_ms"],
+                   p50_latency_ms=warm["p50_latency_ms"],
+                   p99_latency_ms=warm["p99_latency_ms"],
+                   requests_per_sec=warm.get("requests_per_sec"),
+                   coalesced_ms=coalesced_ms, looped_ms=looped_ms,
+                   looped_over_coalesced=looped_ms / coalesced_ms,
+                   stack_ms=stack_ms, run_batched_ms=batched_ms,
+                   finite_ms=finite_ms,
+                   rest_ms=coalesced_ms - stack_ms - batched_ms - finite_ms,
+                   max_abs_err=err)
+        print("[timing] serve " + json.dumps(row), flush=True)
+        del xs
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    zero_counts()
+    bad = serve_stencil.run(200, faults=True, seed=7, show=False,
+                            device=str(dev))
+    torch.cuda.synchronize()
+    print(f"[check] serve faulty tape: 200 requests, seed 7, {bad} "
+          f"unresolved, {time.perf_counter() - t0:.2f}s, launches "
+          f"stencil2d {st.ebisu2d_padded.launches} stencil3d "
+          f"{st3.ebisu3d_padded.launches}", flush=True)
+    check(bad == 0, f"serve faulty tape: {bad} robustness violations")
+    zero_counts()
+    rc = asyncio.run(serve_stencil.run_asyncio(
+        32, seed=3, rate_hz=2000.0, guard="retry_solo", device=str(dev)))
+    torch.cuda.synchronize()
+    launched = st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
+    print(f"[check] serve asyncio front door: 32 requests, rc {rc}, "
+          f"{launched} launches from worker threads", flush=True)
+    check(rc == 0 and launched > 0, "serve asyncio: a request unresolved")
+
+
+TUNE_CASES = ("j2d5pt", "j3d7pt")      # at their paper domains
+TUNE_BUDGET = 64
+
+
+def tune(dev) -> None:
+    """Measured tuning on the card (``repro_torch.tuning``): ``tune()``
+    of j2d5pt at 8352² and j3d7pt at 2560×288×384, budget 64 timing
+    calls (CUDA events), into a plan DB in a temporary directory; the
+    candidates, the pruned ones with their reasons and each round's
+    scores; the winner's ``.run`` ms beside the analytic seed's, both
+    timed here; the tuned program held to the oracle (< 1e-4), its
+    launches counted.  Then a second process, ``python -m
+    repro_torch.tuning check`` on that DB, must hit for both with zero
+    timing calls."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import compile_stencil, sweep_schedule
+    from repro_torch.core.stencil_spec import get
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.stencils.data import init_domain
+    from repro_torch.tuning import search
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_plandb_") as db:
+        for name in TUNE_CASES:
+            spec = get(name)
+            shape = spec.domain
+            wrapper = st.ebisu2d_padded if spec.ndim == 2 \
+                else st3.ebisu3d_padded
+            t0 = time.perf_counter()
+            res = search.tune(spec, shape, db=db, budget=TUNE_BUDGET,
+                              device=dev,
+                              log=lambda *a: print(*a, flush=True))
+            took = time.perf_counter() - t0
+            print(f"[tune] {name}: candidates "
+                  f"{[c.label() for c in res.candidates]}", flush=True)
+            for c, why in res.pruned:
+                print(f"[tune] {name}: pruned {c.label()}: {why}",
+                      flush=True)
+            before = search.TIMING["calls"]
+            tuned = compile_stencil(spec, shape, mode="tuned", plan_db=db)
+            check(search.TIMING["calls"] == before
+                  and tuned.tuned["source"] == "plandb",
+                  f"tune {name}: the tuned compile timed or missed")
+            seed = compile_stencil(spec, shape)
+            steps = res.record["measured"]["total_t"]
+            x = init_domain(spec, device=dev, seed=0)
+            zero_counts()
+            y = tuned.run(x, steps)
+            torch.cuda.synchronize()
+            launched = wrapper.launches
+            sweeps = len(sweep_schedule(steps, tuned.t))
+            print(f"[main path] tuned {name} run({steps}) at t={tuned.t} "
+                  f"tile {tuned.geometry()['block']}: {wrapper.__name__} "
+                  f"launches {launched}", flush=True)
+            check(launched == sweeps, f"tune {name}: {launched} launches, "
+                  f"want {sweeps}")
+            err = held(y, ref.reference(x, spec, steps), 1e-4,
+                       f"tuned {name} run({steps}) vs oracle")
+            del y
+            tuned_ms = median_ms(lambda: tuned.run(x, steps), 5, 1)
+            seed_ms = median_ms(lambda: seed.run(x, steps), 5, 1)
+            row = dict(stencil=name, domain=list(shape), steps=steps,
+                       winner=res.winner.label(),
+                       seed=res.seed.label(),
+                       seed_was_winner=res.winner == res.seed,
+                       candidates=len(res.candidates),
+                       pruned=len(res.pruned), rounds=len(res.rounds),
+                       timing_calls=res.timing_calls,
+                       ratio_to_naive=res.record["measured"][
+                           "ratio_to_naive"],
+                       naive_us=res.record["measured"]["naive_us"],
+                       tuned_run_ms=tuned_ms, seed_run_ms=seed_ms,
+                       seed_over_tuned=seed_ms / tuned_ms,
+                       launches=launched, max_abs_err=err,
+                       tune_s=took)
+            print("[timing] tune " + json.dumps(row), flush=True)
+            del x
+            torch.cuda.empty_cache()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tuning", "check",
+             "--stencil", ",".join(TUNE_CASES), "--scale", "1",
+             "--db", db],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.strip().splitlines():
+            print(f"[check] second process: {line}", flush=True)
+        check(proc.returncode == 0, f"tuning check exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        check(proc.stdout.count("HIT") == len(TUNE_CASES)
+              and "timing_calls=0" in proc.stdout,
+              "tuning check: a miss or a timing call")
 
 
 def lm_serve(dev, held) -> dict:

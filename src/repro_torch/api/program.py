@@ -45,11 +45,20 @@ checkpointed legs (``repro_torch.resilient``):
     y = prog_m.run_sharded(x, 25)   # 3 exchange rounds, not 25
     rep = prog.run_resumable(x, 25, store=CampaignStore(ckpt_dir))
 
+``mode="tuned"`` replays a measured plan from the persistent plan DB
+(``repro_torch.tuning``) with no timing, and an explicit ``plan=`` pins
+the tile the sweeps launch, in 2-D and 3-D alike:
+
+    prog_t = compile_stencil(get("j2d5pt"), (8352, 8352), mode="tuned",
+                             plan_db="/path/to/db")
+    prog_t.tuned["source"]          # "plandb" or "analytic_fallback"
+
 Programs run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every sweep takes the kernel's plain version.
 Both kernels build a library for every tap set ``validate_spec``
 accepts.  Not ported yet, and refused with the ROADMAP item that brings
-it: ``mode="tuned"``.
+it: ``plan=None``, the legacy request-default tiles of the deprecated
+shims.
 """
 from __future__ import annotations
 
@@ -63,9 +72,13 @@ import torch
 from repro_torch.api.boundary import ZERO, Boundary
 from repro_torch.core import roofline as rl
 from repro_torch.core.device import resolve_device
-from repro_torch.core.planner import (EbisuPlan, THREADS, fit_tile_2d,
-                                      fit_tile_3d, plan as make_plan,
-                                      smem_bytes_2d)
+from repro_torch.core.planner import (KERNEL_THREADS_3D, MAX_DEPTH_3D,
+                                      THREADS, EbisuPlan, axis_reach,
+                                      fit_tile_2d, fit_tile_3d,
+                                      kernel_smem_bytes_3d,
+                                      kernel_threads_3d, level_regions_3d,
+                                      max_cells_per_thread,
+                                      plan as make_plan, smem_bytes_2d)
 from repro_torch.core.stencil_spec import (StencilSpec, lift_2d_to_3d,
                                            validate_spec)
 from repro_torch.kernels.stencil2d import (ebisu2d_padded, padded_shape_2d,
@@ -76,7 +89,8 @@ from repro_torch.kernels.taps import ghost_extend, tap_sum
 _BUCKET = 64
 
 _LATER = {
-    "tuned": "ROADMAP Queue 1 item 12 (tuning)",
+    "plan=None": "ROADMAP Queue 1 item 17 (the deprecated shims' "
+                 "request-default tiles)",
 }
 
 
@@ -196,9 +210,19 @@ def sweep_tile(spec: StencilSpec, t: int, shape: tuple[int, int],
                hw: rl.HardwareModel, itemsize: int,
                plan: EbisuPlan | None = None) -> tuple[int, int]:
     """The CTA tile of a depth-``t`` sweep over ``shape``: the plan's own
-    tile at the plan's depth, else the §6.4 fit for this depth."""
+    tile at the plan's depth (refused if the kernel cannot take it), else
+    the §6.4 fit for this depth."""
     if plan is not None and plan.t == t:
-        return plan.block
+        bh, bw = plan.block
+        smem = smem_bytes_2d(spec, t, *strip_geometry(spec, t, bh, bw)[:2],
+                             itemsize)
+        if smem > hw.onchip_bytes:
+            raise ValueError(
+                f"{spec.name}: tile ({bh}, {bw}) at t={t} needs {smem} B "
+                f"of shared memory (two haloed tiles), over the "
+                f"{int(hw.onchip_bytes)} B shared-memory limit of "
+                f"{hw.name}; pin a smaller tile or a lower t")
+        return bh, bw
     fit = fit_tile_2d(spec, t, shape, hw, itemsize)
     if fit is None:
         raise ValueError(
@@ -208,12 +232,57 @@ def sweep_tile(spec: StencilSpec, t: int, shape: tuple[int, int],
     return fit[0], fit[1]
 
 
+def check_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                  block: tuple[int, int, int], hw: rl.HardwareModel,
+                  itemsize: int) -> None:
+    """Refuse a pinned 3-D tile ``(zc, ty, tx)`` the z-streaming kernel
+    cannot launch at depth ``t``, naming the bound it breaks: the levels
+    a sweep holds (``MAX_DEPTH_3D``), the threads of a CTA at the cells a
+    thread may own (``kernel_threads_3d``, ``max_cells_per_thread``), or
+    the shared-memory limit."""
+    zc, ty, tx = block
+    where = f"{spec.name}: tile ({zc}, {ty}, {tx}) at t={t}"
+    if min(zc, ty, tx) < 1:
+        raise ValueError(f"{where}: tile extents must be >= 1")
+    if t > MAX_DEPTH_3D:
+        raise ValueError(f"{where}: the kernel holds at most MAX_DEPTH_3D="
+                         f"{MAX_DEPTH_3D} levels a sweep "
+                         "(kernel_threads_3d); pin a lower t")
+    if kernel_threads_3d(spec, t, shape, ty, tx, itemsize) is None:
+        cells = sum(ny * nx for ny, nx in
+                    level_regions_3d(spec, t, shape, ty, tx))
+        kmax = max_cells_per_thread(spec.radius, itemsize)
+        raise ValueError(
+            f"{where}: its levels compute {cells} cells a plane, more than "
+            f"KERNEL_THREADS_3D={KERNEL_THREADS_3D} threads hold at "
+            f"max_cells_per_thread={kmax} ({itemsize}-byte cells, radius "
+            f"{spec.radius}) (kernel_threads_3d); pin a smaller in-plane "
+            "tile or a lower t")
+    smem = kernel_smem_bytes_3d(spec, t, shape, ty, tx, itemsize)
+    if smem > hw.onchip_bytes:
+        raise ValueError(
+            f"{where}: the kernel allocates {smem} B of shared memory, over "
+            f"the {int(hw.onchip_bytes)} B shared-memory limit of "
+            f"{hw.name}; pin a smaller in-plane tile or a lower t")
+
+
 def sweep_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
-                  hw: rl.HardwareModel, itemsize: int
-                  ) -> tuple[int, int, int]:
+                  hw: rl.HardwareModel, itemsize: int,
+                  plan: EbisuPlan | None = None) -> tuple[int, int, int]:
     """The CTA tile ``(zc, ty, tx)`` of a depth-``t`` 3-D sweep over
-    ``shape``: the planner's fit for this very shape (a tile planned for
-    another extent could cover, and so untile, an axis it should rim)."""
+    ``shape``: a pinned plan's own tile at the plan's depth (refused by
+    :func:`check_tile_3d` if the kernel cannot take it), else the
+    planner's fit for this very shape (the analytic plan's tile, planned
+    for the 64-rounded extent, could cover, and so untile, an axis it
+    should rim, so programs pass it here only when the caller pinned
+    it)."""
+    if plan is not None and plan.t == t:
+        block = tuple(int(b) for b in plan.block)
+        if len(block) != 3:
+            raise ValueError(f"{spec.name}: a 3-D sweep pins a (zc, ty, tx) "
+                             f"tile; the plan's block is {plan.block}")
+        check_tile_3d(spec, t, shape, block, hw, itemsize)
+        return block
     fit = fit_tile_3d(spec, t, tuple(shape), hw, itemsize)
     if fit is None:
         raise ValueError(
@@ -227,27 +296,34 @@ def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, ...], *,
                      hw: rl.HardwareModel = rl.H100, itemsize: int = 4,
                      plan: EbisuPlan | None = None) -> dict:
     """The launch a depth-``t`` sweep over ``shape`` executes: CTA tile,
-    grid, halo, padded layout, threads, shared memory, and the cells each
-    CTA loads (``fetched_cells``) and writes (``body_cells``).  A 3-D
-    spec (a ``stream`` program's lifted one among them) resolves the
-    z-streaming launch, with the kernel's own shared memory
-    (``kernel_smem_bytes``) beside the planner's budget.
+    grid, halo, padded layout, threads, shared memory, the cells each
+    CTA loads (``fetched_cells``) and writes (``body_cells``), and the
+    stencil applications the launch computes, trapezoid included
+    (``cell_updates``).  A 3-D spec (a ``stream`` program's lifted one
+    among them) resolves the z-streaming launch, with the kernel's own
+    shared memory (``kernel_smem_bytes``) beside the planner's budget.
+    ``plan`` pins the tile at its depth, in 2-D and 3-D alike.
 
         g = resolve_geometry(get("j2d5pt"), 4, (512, 512))
         g["grid"], g["block"], g["halo"]    # what apply() will launch
     """
     if spec.ndim == 3:
-        zc, ty, tx = sweep_tile_3d(spec, t, shape, hw, itemsize)
+        zc, ty, tx = sweep_tile_3d(spec, t, shape, hw, itemsize, plan)
         return launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
                                   itemsize=itemsize)
     bh, bw = sweep_tile(spec, t, shape, hw, itemsize, plan)
     bh, bw, halo = strip_geometry(spec, t, bh, bw)
     hp, wp = padded_shape_2d(spec, t, bh, bw, *shape)
-    return dict(grid=(hp // bh, wp // bw), block=(bh, bw), halo=halo,
+    ry, rx = axis_reach(spec, 0), axis_reach(spec, 1)
+    grid = (hp // bh, wp // bw)
+    return dict(grid=grid, block=(bh, bw), halo=halo,
                 padded=(hp, wp), threads=THREADS,
                 smem_bytes=smem_bytes_2d(spec, t, bh, bw, itemsize),
                 fetched_cells=(bh + 2 * halo) * (bw + 2 * halo),
-                body_cells=bh * bw)
+                body_cells=bh * bw,
+                cell_updates=math.prod(grid) * sum(
+                    (bh + 2 * (t - s) * ry) * (bw + 2 * (t - s) * rx)
+                    for s in range(1, t + 1)))
 
 
 def kernel_view(spec: StencilSpec, kernel_spec: StencilSpec,
@@ -287,7 +363,8 @@ def _grouped(schedule: tuple[int, ...]) -> list[tuple[int, int]]:
 
 
 def _sweep_launch(spec: StencilSpec, t: int, shape: tuple[int, ...],
-                  hw: rl.HardwareModel, itemsize: int, plan: EbisuPlan):
+                  hw: rl.HardwareModel, itemsize: int,
+                  plan: EbisuPlan | None):
     """One depth-``t`` sweep of the kernel ``spec`` over its domain
     ``shape`` as ``(padded shape, sweep(xp, out=buf))``."""
     g = resolve_geometry(spec, t, shape, hw=hw, itemsize=itemsize,
@@ -305,7 +382,8 @@ def _sweep_launch(spec: StencilSpec, t: int, shape: tuple[int, ...],
 
 def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
                  dtype: torch.dtype, total_t: int, depth: int,
-                 plan: EbisuPlan, hw: rl.HardwareModel, boundary: Boundary,
+                 plan: EbisuPlan | None, hw: rl.HardwareModel,
+                 boundary: Boundary,
                  compute_dtype: torch.dtype, kernel_spec: StencilSpec):
     """The multi-sweep schedule as ``f(x) -> x``, for 2-D and 3-D specs
     and the lifted 2-D ``stream`` sweep alike: the boundary is resolved
@@ -403,7 +481,8 @@ class StencilProgram:
                  dtype: torch.dtype, t: int, plan: EbisuPlan,
                  hw: rl.HardwareModel, boundary: Boundary, mode: str,
                  device: torch.device, compute_dtype: torch.dtype,
-                 kernel_spec: StencilSpec, mesh=None):
+                 kernel_spec: StencilSpec, mesh=None, pinned: bool = False,
+                 tuned: dict | None = None):
         self._key = key
         self.spec = spec
         self.shape = shape
@@ -417,6 +496,16 @@ class StencilProgram:
         self.compute_dtype = compute_dtype
         self.kernel_spec = kernel_spec   # the lifted spec under "stream"
         self.mesh = mesh                 # a launch.mesh.Mesh, or None
+        self.pinned = pinned             # the caller's (or the DB's) plan
+        self.tuned = tuned               # mode="tuned" provenance, or None
+
+    @property
+    def tile_plan(self) -> EbisuPlan | None:
+        """The plan whose tile the sweeps launch at its depth: a pinned
+        plan always; the analytic plan in 2-D only (a 3-D sweep re-fits
+        its tile for the exact shape, see :func:`sweep_tile_3d`)."""
+        return (self.plan if self.pinned or self.kernel_spec.ndim == 2
+                else None)
 
     # ------------------------------------------------------- execution ----
     def _check(self, x, batched: bool = False) -> torch.Tensor:
@@ -446,8 +535,9 @@ class StencilProgram:
         fn = RUNNER_CACHE.get_or_build(
             (self._key, "apply", depth),
             lambda: _build_chain(self.spec, self.shape, self.dtype, depth,
-                                 depth, self.plan, self.hw, self.boundary,
-                                 self.compute_dtype, self.kernel_spec))
+                                 depth, self.tile_plan, self.hw,
+                                 self.boundary, self.compute_dtype,
+                                 self.kernel_spec))
         return fn(x)
 
     def run(self, x, total_t: int) -> torch.Tensor:
@@ -471,8 +561,9 @@ class StencilProgram:
         return RUNNER_CACHE.get_or_build(
             (self._key, "run", total_t),
             lambda: _build_chain(self.spec, self.shape, self.dtype, total_t,
-                                 depth, self.plan, self.hw, self.boundary,
-                                 self.compute_dtype, self.kernel_spec))
+                                 depth, self.tile_plan, self.hw,
+                                 self.boundary, self.compute_dtype,
+                                 self.kernel_spec))
 
     def run_batched(self, xs, total_t: int | None = None) -> torch.Tensor:
         """A leading batch axis of independent fields through the chain of
@@ -494,7 +585,7 @@ class StencilProgram:
 
     def run_padded(self, xp: torch.Tensor, total_t: int) -> torch.Tensor:
         """``total_t`` steps on a padded buffer the caller owns (2-D,
-        zero Dirichlet, ``mode="fused"``, the program's depth dividing
+        zero Dirichlet, ``mode="fused"`` or ``"scratch"``, the program's depth dividing
         ``total_t``): ``xp`` has :attr:`padded_shape` and the compute
         dtype, the domain at its origin.  The sweeps ping-pong ``xp``
         with one partner buffer and return the one holding the result;
@@ -506,7 +597,7 @@ class StencilProgram:
             xp = prog.run_padded(xp, 24)        # xp[:h, :w] == run(x, 24)
         """
         if (self.spec.ndim != 2 or not self.boundary.is_zero_dirichlet
-                or self.mode != "fused"):
+                or self.mode not in ("fused", "scratch")):
             raise ValueError("run_padded is the 2-D zero-Dirichlet "
                              "padded-carry path (fused); use run()")
         if xp.dtype != self.compute_dtype:
@@ -528,7 +619,7 @@ class StencilProgram:
                 f"program's t={self.t} must divide total_t={total_t}")
         itemsize = xp.element_size()
         _, sweep = _sweep_launch(self.spec, self.t, self.shape, self.hw,
-                                 itemsize, self.plan)
+                                 itemsize, self.tile_plan)
         buf = torch.empty_like(xp) if total_t else xp
         for _ in range(total_t // self.t):
             sweep(xp, out=buf)
@@ -654,7 +745,7 @@ class StencilProgram:
         kshape, _ = kernel_view(self.spec, self.kernel_spec,
                                 self.compute_shape(depth))
         return resolve_geometry(self.kernel_spec, depth, kshape, hw=self.hw,
-                                itemsize=itemsize, plan=self.plan)
+                                itemsize=itemsize, plan=self.tile_plan)
 
     def cost(self, t: int | None = None) -> rl.RooflineResult:
         """§5 practical-attainable estimate at depth ``t``: the plan's own
@@ -702,7 +793,8 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
                     hw: rl.HardwareModel | None = None,
                     boundary: Boundary | None = None, mode: str = "fused",
                     compute_dtype: torch.dtype | None = None, mesh=None,
-                    device=None) -> StencilProgram:
+                    device=None, plan: EbisuPlan | None | str = "auto",
+                    plan_db=None) -> StencilProgram:
     """Compile a 2-D or 3-D stencil to an immutable
     :class:`StencilProgram`.
 
@@ -712,9 +804,14 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
         y = prog.run(x, 64)
 
     ``mode`` is ``"fused"`` (2-D: the tile kernel; 3-D: the z-streaming
-    kernel) or, for a 2-D spec, ``"stream"``: the 2-D field streamed
-    through the z-streaming kernel as an ``(H, 1, W)`` domain, planned on
-    the lifted spec (``apply`` only, as in the reference).
+    kernel), ``"scratch"``, or, for a 2-D spec, ``"stream"``: the 2-D
+    field streamed through the z-streaming kernel as an ``(H, 1, W)``
+    domain, planned on the lifted spec (``apply`` only, as in the
+    reference).  ``"scratch"`` is the reference's TPU kernel that keeps
+    its steps in scratch buffers; on the card it runs the same tile
+    kernel as ``"fused"``, whose steps already ping-pong between two
+    shared-memory buffers, and a 3-D spec ignores it, as the
+    reference's does.
 
     ``device`` defaults to the current CUDA device and raises if there is
     none; ``device="cpu"`` runs the plain version.  ``hw`` defaults to the
@@ -723,6 +820,19 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     :func:`plan_bucketed`).  ``dtype`` is cell storage and ``compute_dtype`` what the kernel runs
     in (see :func:`resolve_compute_dtype`).  Programs are memoized:
     recompiling with identical arguments returns the same handle.
+
+    ``plan`` is normally derived (``"auto"``); an explicit ``EbisuPlan``
+    is honored verbatim: its tile drives every sweep of its depth, in 2-D
+    and 3-D, and a tile the kernel cannot take raises ``ValueError`` here,
+    naming the bound it breaks.  ``plan=None`` (the reference's legacy
+    request-default tiles) is not ported.
+
+    ``mode="tuned"`` resolves (t, tile, kernel family) from the
+    persistent plan DB (``repro_torch.tuning``): a hit replays the
+    measured winner with no search and no timing; a miss falls back to
+    the analytic plan (``mode="fused"``).  Either way ``prog.tuned``
+    records the provenance.  ``plan_db`` is a ``PlanDB``, a directory, or
+    ``None`` for the default one; only ``mode="tuned"`` reads it.
 
     ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, an int, or a
     tuple — mesh axis ``k`` shards tensor dim ``k``) makes the program
@@ -739,13 +849,37 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     """
     validate_spec(spec)
     if mode == "tuned":
-        raise _not_ported(mode)
-    if mode not in ("fused", "stream"):
-        raise ValueError(f"unknown mode {mode!r}; expected 'fused' or, for "
-                         "a 2-D spec, 'stream'")
+        # the DB record supplies depth, tile and kernel family: explicit
+        # overrides would make the record a lie, so they are refused
+        if t is not None:
+            raise ValueError(
+                "mode='tuned' resolves t from the plan DB; drop t= "
+                "(or compile mode='fused' with an explicit t to pin "
+                "depth yourself)")
+        if not (isinstance(plan, str) and plan == "auto"):
+            raise ValueError(
+                "mode='tuned' resolves the plan from the plan DB; drop "
+                "plan= (pass an explicit EbisuPlan with mode='fused'/"
+                "'scratch' to pin tiles yourself)")
+        if mesh is not None:
+            raise ValueError(
+                "mode='tuned' records are single-device measurements; "
+                "compile mesh= programs with an explicit mode (the "
+                "per-shard plan is derived analytically)")
+    elif mode not in ("fused", "scratch", "stream"):
+        raise ValueError(f"unknown mode {mode!r}; expected 'fused', "
+                         "'scratch', 'tuned' or, for a 2-D spec, 'stream'")
     if mode == "stream" and spec.ndim != 2:
         raise ValueError(f"mode='stream' lifts a 2-D stencil; {spec.name} "
                          "is 3-D and always streams z (mode='fused')")
+    if plan is None:
+        raise _not_ported("plan=None")
+    if not isinstance(plan, (str, EbisuPlan)):
+        raise ValueError(f"plan must be an EbisuPlan or 'auto'; got "
+                         f"{type(plan).__name__}")
+    if isinstance(plan, str) and plan != "auto":
+        raise ValueError(f"plan must be an EbisuPlan or 'auto'; got "
+                         f"{plan!r}")
     shape = tuple(int(n) for n in shape)
     if len(shape) != spec.ndim:
         raise ValueError(f"{spec.name} is {spec.ndim}-D; got shape {shape}")
@@ -759,6 +893,19 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     boundary = ZERO if boundary is None else boundary
     cdtype = resolve_compute_dtype(dtype, compute_dtype)
     itemsize = torch.empty((), dtype=cdtype).element_size()
+    tuned_info = None
+    if mode == "tuned":
+        from repro_torch.tuning import plandb as _plandb
+        rec = _plandb.resolve_db(plan_db).lookup(
+            spec, shape, _plandb.tier_for(device), device)
+        if rec is not None:
+            plan = _plandb.plan_from_record(spec, shape, hw, rec, itemsize)
+            t = plan.t
+            mode = rec["plan"]["exec_mode"]
+            tuned_info = {"source": "plandb", "record": rec}
+        else:
+            mode = "fused"
+            tuned_info = {"source": "analytic_fallback"}
     kernel_spec = lift_2d_to_3d(spec) if mode == "stream" else spec
     plan_shape = shape
     if mesh is not None:
@@ -767,9 +914,11 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
         # device is one big tile — plan for the shard it owns
         _sharded.validate_mesh_for(spec, shape, mesh, 1, boundary)
         plan_shape = _sharded.shard_extents(shape, mesh)
-    plan = plan_bucketed(kernel_spec, kernel_view(spec, kernel_spec,
-                                                  plan_shape)[0], hw,
-                         itemsize)
+    pinned = not isinstance(plan, str)
+    if not pinned:
+        plan = plan_bucketed(kernel_spec, kernel_view(spec, kernel_spec,
+                                                      plan_shape)[0], hw,
+                             itemsize)
     depth = t if t is not None else plan.t
     if depth < 1:
         raise ValueError(f"temporal depth must be >= 1, got {depth}")
@@ -777,12 +926,15 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     if mesh is not None:
         _sharded.validate_mesh_for(spec, shape, mesh, depth, boundary)
     key = (spec, shape, dtype, depth, hw.name, boundary, mode,
-           _plan_key(plan), cdtype, str(device), _sharded.mesh_key(mesh))
+           _plan_key(plan), pinned, cdtype, str(device),
+           _sharded.mesh_key(mesh),
+           None if tuned_info is None else ("tuned", tuned_info["source"]))
     cached = PROGRAM_CACHE.get(key)
     if cached is not None:
         return cached
     prog = StencilProgram(key, spec, shape, dtype, depth, plan, hw,
-                          boundary, mode, device, cdtype, kernel_spec, mesh)
-    prog.geometry()     # refuse a depth whose tile cannot fit, here
+                          boundary, mode, device, cdtype, kernel_spec, mesh,
+                          pinned=pinned, tuned=tuned_info)
+    prog.geometry()     # refuse a depth or a pinned tile that cannot fit
     PROGRAM_CACHE.put(key, prog)
     return prog

@@ -45,6 +45,15 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _build_locks: dict[Path, threading.Lock] = {}
 _libs: dict[tuple[str, str | None], ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: the stencil service
+    launches from worker threads, and a bare ``+= 1`` could lose a count
+    when two of them launch at once."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def nvcc_path() -> str:

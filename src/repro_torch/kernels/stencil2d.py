@@ -11,7 +11,8 @@ A leading batch axis ``(B, hp, wp)`` holds ``B`` independent fields, all
 swept by one launch (the reference vmaps its kernel over it).
 
   * On a CUDA tensor, :func:`ebisu2d_padded` launches the kernel (or
-    raises) and adds one to ``ebisu2d_padded.launches``.
+    raises) and adds one to ``ebisu2d_padded.launches`` (under a lock,
+    so threads that launch at once lose no count).
   * On a CPU tensor it runs :func:`ebisu2d_padded_plain`: the tap
     engine's ``chain`` over the padded array, masked to the domain after
     every step.  No CUDA tensor ever takes the plain version.
@@ -200,7 +201,7 @@ def ebisu2d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
         raise ValueError(f"ebisu2d_padded runs on cuda or cpu tensors, got "
                          f"{xp.device}")
     _launch(xp, out, spec, t, height, width, bh, bw)
-    ebisu2d_padded.launches += 1
+    _build.count_launch(ebisu2d_padded)
     return out
 
 

@@ -12,7 +12,8 @@ independent fields, all swept by one launch (the reference vmaps its
 kernel over it).
 
   * On a CUDA tensor, :func:`ebisu3d_padded` launches the kernel (or
-    raises) and adds one to ``ebisu3d_padded.launches``.
+    raises) and adds one to ``ebisu3d_padded.launches`` (under a lock,
+    so threads that launch at once lose no count).
   * On a CPU tensor it runs :func:`ebisu3d_padded_plain`: the tap
     engine's ``chain`` over the padded array, masked to the domain after
     every step.  No CUDA tensor ever takes the plain version.
@@ -204,7 +205,7 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
         raise ValueError(f"ebisu3d_padded runs on cuda or cpu tensors, got "
                          f"{xp.device}")
     _launch(xp, out, spec, t, shape, geom)
-    ebisu3d_padded.launches += 1
+    _build.count_launch(ebisu3d_padded)
     return out
 
 

@@ -1,1 +1,4 @@
-"""Serving of the port's decoder LMs: prefill, greedy decode."""
+"""Serving on the card: the decoder LMs' prefill and greedy decode
+(``serve_step``), and the stencil service (``stencil_service``), which
+coalesces requests into one ``StencilProgram.run_batched`` launch a
+sweep."""

@@ -1248,3 +1248,104 @@ def test_card_campaign_bitexact(cuda_device, tmp_path, name, shape):
     # legs 1-2 before the crash, 3-4 after it: no leg runs twice
     assert (st.ebisu2d_padded.launches + st3.ebisu3d_padded.launches
             - before) == sweeps
+
+
+# the stencil service and measured tuning on the card
+# (tests/test_torch_serve.py and tests/test_torch_tuning.py hold them
+# against the reference on the CPU)
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,t,steps", [("j2d5pt", (200, 300), 4, 9),
+                                                ("j3d7pt", (24, 40, 72), 2,
+                                                 5)])
+def test_service_batch_launches_one_sweep_for_all(cuda_device, name, shape,
+                                                  t, steps):
+    """Three requests coalesce into one ``run_batched``: one launch a
+    sweep for the whole batch, each result equal to its ``.run``."""
+    from repro_torch.api import sweep_schedule
+    from repro_torch.faults import SimClock
+    from repro_torch.serve.stencil_service import (ServeRequest,
+                                                   ServiceConfig,
+                                                   ServiceCore)
+
+    spec = tspec.get(name)
+    wrapper = st.ebisu2d_padded if spec.ndim == 2 else st3.ebisu3d_padded
+    core = ServiceCore(ServiceConfig(max_batch=4, device="cuda"),
+                       clock=SimClock())
+    xs = [field(shape, seed=i) for i in range(3)]
+    before = wrapper.launches
+    tks = [core.submit(ServeRequest(spec, x.numpy(), total_t=steps, t=t,
+                                    tenant=f"t{i}"))
+           for i, x in enumerate(xs)]
+    core.drain()
+    torch.cuda.synchronize()
+    assert wrapper.launches - before == len(sweep_schedule(steps, t))
+    prog = compile_stencil(spec, shape, t=t)
+    for x, tk in zip(xs, tks):
+        assert tk.ok and tk.batched_width == 3
+        assert tk.result().device.type == "cuda"
+        torch.testing.assert_close(tk.result(), prog.run(x.cuda(), steps),
+                                   atol=2e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_service_asyncio_on_card(cuda_device):
+    """The asyncio front door dispatches on worker threads: every request
+    resolves, on the card, to its ``.run``; the launches are counted."""
+    import asyncio
+
+    from repro_torch.serve.stencil_service import (ServeRequest,
+                                                   ServiceConfig,
+                                                   StencilService)
+
+    spec, shape = tspec.get("j2d5pt"), (96, 128)
+    xs = [field(shape, seed=i) for i in range(8)]
+
+    async def go():
+        svc = StencilService(ServiceConfig(max_batch=4, batch_window_ms=1.0,
+                                           device="cuda"))
+        await svc.start()
+        try:
+            return await asyncio.gather(*[svc.submit(ServeRequest(
+                spec, x, total_t=6, t=3)) for x in xs])
+        finally:
+            await svc.stop()
+
+    before = st.ebisu2d_padded.launches
+    ys = asyncio.run(go())
+    torch.cuda.synchronize()
+    assert st.ebisu2d_padded.launches > before
+    prog = compile_stencil(spec, shape, t=3)
+    for x, y in zip(xs, ys):
+        torch.testing.assert_close(y, prog.run(x.cuda(), 6), atol=2e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("j2d5pt", (256, 320)),
+                                        ("j3d7pt", (32, 48, 96))])
+def test_tuned_program_on_card(cuda_device, tmp_path, name, shape):
+    """``tune`` on the card (CUDA events) persists a native-tier record a
+    tuned compile replays with zero timing; the tuned program launches
+    its sweeps and agrees with the oracle."""
+    from repro_torch.api import sweep_schedule
+    from repro_torch.tuning import search
+    from repro_torch.tuning.plandb import hw_fingerprint
+
+    spec = tspec.get(name)
+    res = search.tune(spec, shape, db=str(tmp_path), budget=12,
+                      max_candidates=4)
+    assert res.record["key"]["tier"] == "native"
+    assert res.record["key"]["hw"] == hw_fingerprint("cuda")
+    before = search.TIMING["calls"]
+    prog = compile_stencil(spec, shape, mode="tuned", plan_db=str(tmp_path))
+    assert search.TIMING["calls"] == before
+    assert prog.tuned["source"] == "plandb" and prog.device.type == "cuda"
+    wrapper = st.ebisu2d_padded if spec.ndim == 2 else st3.ebisu3d_padded
+    x = field(shape, seed=5).cuda()
+    steps = 2 * prog.t + 1
+    launches = wrapper.launches
+    y = prog.run(x, steps)
+    torch.cuda.synchronize()
+    assert wrapper.launches - launches == len(sweep_schedule(steps, prog.t))
+    torch.testing.assert_close(y, ref.reference(x, spec, steps), atol=2e-5,
+                               rtol=0)

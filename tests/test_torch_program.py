@@ -161,12 +161,13 @@ def test_no_device_without_cuda_raises(monkeypatch):
                              device="cpu").run_sharded(torch.zeros(SHAPE),
                                                        4),
      ValueError, "mesh-compiled"),
-    (lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="tuned",
+    # mode="tuned" is ported: these ids hold its refusals (t=, mesh=)
+    (lambda: compile_stencil(tspec.get("j2d5pt"), SHAPE, mode="tuned", t=2,
                              device="cpu"),
-     NotImplementedError, "ROADMAP Queue 1 item 12"),
+     ValueError, "drop t="),
     (lambda: compile_stencil(tspec.get("j2d5pt"), (36, 53), mode="tuned",
                              mesh=(2, 1), device="cpu"),
-     NotImplementedError, "ROADMAP Queue 1 item 12"),
+     ValueError, "single-device"),
     (lambda: _prog().run_sharded_resumable(torch.zeros(SHAPE), 4,
                                            store=None),
      ValueError, "mesh-compiled"),
@@ -174,20 +175,21 @@ def test_no_device_without_cuda_raises(monkeypatch):
                                    every=0),
      ValueError, "every must be >= 1"),
     # run_batched and run_padded are ported: their ids hold refusals on a
-    # 3-D program (neumann under a mesh; mode="tuned")
+    # 3-D program (neumann under a mesh; plan=None, the deprecated shims'
+    # request-default tiles)
     (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), t=1,
                              mesh=(2, 1), boundary=Boundary.neumann(),
                              device="cpu"),
      ValueError, "does not support neumann"),
-    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), mode="tuned",
+    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), plan=None,
                              device="cpu"),
-     NotImplementedError, "ROADMAP Queue 1 item 12"),
+     NotImplementedError, "ROADMAP Queue 1 item 17"),
 ], ids=["3d", "stream", "tuned", "mesh", "run_sharded", "run_resumable",
         "run_batched", "run_padded"])
 def test_refusals_name_the_roadmap_item(call, exc, match):
-    """What the port still refuses: ``mode="tuned"`` names its ROADMAP
-    item; the sharded and campaign paths refuse what the reference
-    refuses."""
+    """What the port still refuses: ``plan=None`` names its ROADMAP item;
+    ``mode="tuned"``, the sharded and campaign paths refuse what the
+    reference refuses."""
     with pytest.raises(exc, match=match):
         call()
 
@@ -204,7 +206,7 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="field is on meta"):
         prog.apply(torch.zeros(SHAPE, device="meta"))
     with pytest.raises(ValueError, match="unknown mode"):
-        _prog(mode="scratch")
+        _prog(mode="bogus")
     with pytest.raises(ValueError, match="compute_dtype"):
         _prog(compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="normalize"):

@@ -186,7 +186,7 @@ def test_stream_refusals():
     with pytest.raises(ValueError, match="3-D"):
         compile_stencil(tspec.get("j3d7pt"), (19, 13), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_stencil(tspec.get("j3d7pt"), SHAPE, mode="tuned",
+        compile_stencil(tspec.get("j3d7pt"), SHAPE, plan=None,
                         device="cpu")
 
 

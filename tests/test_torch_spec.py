@@ -238,9 +238,10 @@ def test_hardware_for_cpu_is_the_datasheet_model():
 
 
 def test_import_gate():
-    """``import repro_torch`` (its API, and the LM serving and training
-    modules) pulls in no jax, no triton, nothing of the reference
-    package, and initializes no CUDA."""
+    """``import repro_torch`` (its API, the LM serving and training
+    modules, the stencil service and the tuning package) pulls in no
+    jax, no triton, nothing of the reference package, and initializes
+    no CUDA."""
     code = textwrap.dedent("""
         import sys
         import repro_torch, repro_torch.api, repro_torch.launch.stencil_run
@@ -265,6 +266,11 @@ def test_import_gate():
         import repro_torch.resilient, repro_torch.resilient.health
         import repro_torch.resilient.policy, repro_torch.resilient.store
         import repro_torch.resilient.runner
+        import repro_torch.tuning, repro_torch.tuning.plandb
+        import repro_torch.tuning.search, repro_torch.tuning.analytic
+        import repro_torch.tuning.cli
+        import repro_torch.serve.faults, repro_torch.serve.stencil_service
+        import repro_torch.launch.serve_stencil
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)
