@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py lm   # phases alone: 2d 3d sharded campaign
-                               # serve tune systems lm train
+                               # serve tune systems lm train families
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
@@ -86,6 +86,23 @@ in its own counted run:
   ``csrc/flash_attention_bwd_mma.cu``; float32 inputs run the FMA kernels of
   ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``).
 
+* families (``flash_attention``, ``flash_attention_bwd``): the other LM
+  families at their published widths, bf16, ``flash_pallas``, random
+  weights from a seed: ``launch.serve.run`` serves mamba2-130m (no
+  attention: 0 launches a prefill), zamba2-2.7b (9: one per shared-block
+  invocation), granite-moe-3b-a800m (32), internvl2-1b (24; 7936 tokens
+  after its 256 patches) to 4 prompts of 8192 positions with 32 greedy
+  tokens, and qwen3-moe-235b-a22b with its depth cut to 2 of 94 layers
+  (2 launches; its experts do not fit one card whole) to 1 prompt of
+  4096 with 8; ``transformer.prefill``'s encoder branch runs
+  hubert-xlarge's 48 layers over 4 × 4096 frames (48 launches, every
+  one bidirectional); each run's prefill and a decode step are then
+  profiled (``torch.profiler``: the device's busy share and the longest
+  kernels); and one AdamW step of mamba2, zamba2, granite, hubert and
+  internvl2 at depth 2 in f32 (1 × 1024 positions, one microbatch,
+  remat) launches the forward kernel twice and each backward kernel
+  once per attention call.
+
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
 other kernels.
@@ -105,10 +122,12 @@ a sharded campaign that loses a device restored onto (2, 1) (< 1e-4 of
 subprocess and resumed, its ``--out`` equal to a straight run's, and
 the campaign's time with its checkpoints beside ``.run``'s; the
 whole LM path in f32 at full width and depth 2, kernel against the chunked
-attention path (last-token logits < 1e-4, greedy agreement printed); the
+attention path (last-token logits < 1e-4, greedy agreement printed), and
+so each family's at 1 × 4096 positions; the
 whole training path in f32 at full width and depth 2, kernels against the
 chunked path (loss < 1e-4, each gradient leaf within 1e-4 of its largest
-|value|, parameters after one AdamW step < 2e-4); the flash forward and
+|value|, parameters after one AdamW step < 2e-4), and so each family's
+step; the flash forward and
 backward kernels against their plain versions at the full-width layer shapes
 (f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
 element, two units in the last place, with a control that the limit
@@ -119,7 +138,12 @@ backward's gradients: f32 < 1e-4 (the float32 kernels of
 with the window − 1 control and a second launch equal bit for bit) and at
 small ones (GQA 1/2/4/8, bidirectional, hd 16/64/80/96/128/144/256,
 windows on the tile edges, S no multiple of 64, rows that keep no
-key).  Timings use CUDA events (warm-up, then the median): each
+key), and the forward at each family's served layer shape, both
+instantiations (hubert's 4 × 4096 16/16 hd 80 bidirectional; zamba2's
+32/32 hd 80, granite's 24/8 hd 64 and internvl2's 14/2 hd 64 at 4 ×
+8192; qwen3-moe's 1 × 4096 64/4 hd 128; the bf16 control drops one key
+from every row: the diagonal key of a causal row, the last key
+otherwise).  Timings use CUDA events (warm-up, then the median): each
 kernel's ms, its plain version's,
 and a one-call yardstick the port never calls, ``library_ms``: ``t``
 chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
@@ -197,6 +221,36 @@ TRAIN_CHECK_LR = 1e-4
 # round one float32 result to bf16, so a sound kernel is at most one unit
 # in the last place (2^-7·|want|) away; the limit allows two.
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -6
+# the families phase: served at the published widths in bf16 (arch, batch,
+# prompt tokens, new tokens, depth cut); qwen3-moe-235b-a22b's 94 layers
+# of 128 experts do not fit one card, so it runs 2 of them.  internvl2's
+# 7936 tokens follow its 256 patches: 8192 positions, which the kernel's
+# 1024-key chunks divide
+FAMILY_SERVE = [("mamba2-130m", 4, 8192, 32, None),
+                ("zamba2-2.7b", 4, 8192, 32, None),
+                ("granite-moe-3b-a800m", 4, 8192, 32, None),
+                ("internvl2-1b", 4, 8192 - 256, 32, None),
+                ("qwen3-moe-235b-a22b", 1, 4096, 8, 2)]
+FAMILY_REPEATS = 2
+ENCODER_ARCH, ENCODER_BATCH, ENCODER_FRAMES = "hubert-xlarge", 4, 4096
+# whole paths in f32 at depth 2, each family at 1 × 4096 positions
+FAMILY_WHOLE_PATH = ["mamba2-130m", "zamba2-2.7b", "granite-moe-3b-a800m",
+                     "qwen3-moe-235b-a22b", "hubert-xlarge", "internvl2-1b"]
+FAMILY_WHOLE_PATH_SEQ = 4096
+# the flash forward at each new full-width layer shape, at the batch and
+# positions its serving run gives it (arch, causal, batch, positions)
+FAMILY_LAYER_SHAPES = [("hubert-xlarge", False, ENCODER_BATCH,
+                        ENCODER_FRAMES),
+                       ("zamba2-2.7b", True, 4, 8192),
+                       ("granite-moe-3b-a800m", True, 4, 8192),
+                       ("internvl2-1b", True, 4, 8192),
+                       ("qwen3-moe-235b-a22b", True, 1, 4096)]
+# one AdamW step at depth 2 in f32, batch 1 × 1024 positions, one
+# microbatch; the five families (qwen3-moe-235b-a22b's two layers with
+# their f32 gradients and moments do not fit one card)
+FAMILY_TRAIN = ["mamba2-130m", "zamba2-2.7b", "granite-moe-3b-a800m",
+                "hubert-xlarge", "internvl2-1b"]
+FAMILY_TRAIN_SEQ = 1024
 
 
 def check(ok: bool, what: str) -> None:
@@ -308,16 +362,17 @@ def main() -> int:
                 "stack frame")
 
     every = ["2d", "3d", "sharded", "campaign", "serve", "tune", "systems",
-             "lm", "train"]
+             "lm", "train", "families"]
     phases = sys.argv[1:] or every
     check(set(phases) <= set(every), f"unknown phases {phases}; pass any "
           f"of {' '.join(every)}, or none for all")
+    entries = []
     run = {"2d": lambda: two_d(dev), "3d": lambda: three_d(dev, held),
            "sharded": lambda: sharded(dev), "campaign": lambda: campaign(dev),
            "serve": lambda: serve(dev), "tune": lambda: tune(dev),
            "systems": lambda: systems(dev),
-           "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev)}
-    entries = []
+           "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev),
+           "families": lambda: families(dev, entries)}
     for phase in every:
         if phase not in phases:
             continue
@@ -1943,6 +1998,44 @@ def lm_serve(dev, held) -> dict:
         "greedy_agreement_whole_path": agree, "lm": lm, "timing": row}
 
 
+def device_kernels(run) -> tuple:
+    """``run()`` once under ``torch.profiler``: its host-clock ms, and the
+    CUDA kernels it ran as ``(ms, calls, name)``, longest first, or a
+    "not measured (...)" string where the profiler gave no device time.
+    Only the profiler is guarded: what ``run`` raises propagates."""
+    import torch
+
+    prof, note = None, "not measured (no device time in the trace)"
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:   # the profiler is a diagnostic only
+        prof, note = None, f"not measured (torch.profiler: {e})"
+    t0 = time.perf_counter()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if prof is not None:
+            try:
+                prof.stop()
+            except Exception as e:
+                prof, note = None, f"not measured (torch.profiler: {e})"
+    evs = []
+    try:
+        for e in (prof.key_averages() if prof is not None else ()):
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+            if t > 0:
+                evs.append((t / 1e3, e.count, e.key))
+    except Exception as e:
+        evs, note = [], f"not measured (torch.profiler: {e})"
+    return wall_ms, sorted(evs, reverse=True) or note
+
+
 def sdpa_backend(run) -> dict:
     """Which ``scaled_dot_product_attention`` backend ``run`` (a forward
     and backward) takes: the backends that accept it when it is limited
@@ -1962,24 +2055,10 @@ def sdpa_backend(run) -> dict:
             accepts.append(b.name)
         except RuntimeError:
             pass
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        evs = []
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-            if t > 0:
-                evs.append((t, e.key))
-        kernels = [f"{k[:100]} ({t / 1e3:.3f} ms)"
-                   for t, k in sorted(evs)[::-1][:4]]
-    except Exception as e:   # the profiler is a diagnostic only
-        kernels = [f"not measured (torch.profiler: {e})"]
-    return {"accepting_backends": accepts,
-            "kernels": kernels or ["not measured (no device time)"]}
+    _, evs = device_kernels(run)
+    kernels = ([evs] if isinstance(evs, str) else
+               [f"{k[:100]} ({t:.3f} ms)" for t, _, k in evs[:4]])
+    return {"accepting_backends": accepts, "kernels": kernels}
 
 
 def lm_train(dev) -> dict:
@@ -2311,6 +2390,393 @@ def lm_train(dev) -> dict:
         "bf16_share_of_limit": shares["bfloat16"],
         "bf16_limit_control_window_minus_1": control,
         "whole_training_path_f32": whole, "train": train, "timing": row}
+
+
+def family_batch(cfg, batch, seq, gen, dev):
+    """A prompt of ``seq`` positions for ``cfg``'s family, from ``gen``:
+    frames and a 15 % mask for the encoder; tokens for the decoders, the
+    VLM's after its patches (``seq`` counts both)."""
+    import torch
+
+    if cfg.family == "encoder":
+        return {"frames": torch.randn((batch, seq, cfg.d_model),
+                                      generator=gen, device=dev)
+                .to(cfg.activ_dtype),
+                "mask": torch.rand((batch, seq), generator=gen,
+                                   device=dev) < 0.15}
+    patches = cfg.vlm_patches if cfg.family == "vlm" else 0
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq - patches),
+                                   generator=gen, device=dev)}
+    if patches:
+        out["patches"] = torch.randn(
+            (batch, patches, cfg.vlm_patch_dim), generator=gen,
+            device=dev).to(cfg.activ_dtype)
+    return out
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls in one forward of ``cfg``: none for the SSM, one
+    per shared invocation for the hybrid, one per layer otherwise."""
+    from repro_torch.models import transformer
+
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return transformer.n_shared_invocations(cfg)
+    return cfg.n_layers
+
+
+def profiled(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its host-clock ms, the CUDA
+    kernels' summed time and its share of that ms (the device's busy
+    share), and the six kernels that took longest, with their calls."""
+    wall_ms, evs = device_kernels(fn)
+    if isinstance(evs, str):
+        return {"profile": evs}
+    busy = sum(t for t, _, _ in evs)
+    return dict(host_ms_profiled=wall_ms, kernel_ms=busy,
+                device_busy_share=busy / wall_ms,
+                top_kernels=[f"{k[:90]} x{n}: {t:.3f} ms"
+                             for t, n, k in evs[:6]])
+
+
+def family_profiles(cfg, batch, seq, dev) -> dict:
+    """A prefill of ``cfg`` (random weights, after a warm-up) and, for a
+    decoder, one decode step after it, each :func:`profiled`."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    model = init_params(transformer.build_model(cfg, dev),
+                        torch.Generator(dev).manual_seed(0))
+    prompt = family_batch(cfg, batch, seq, torch.Generator(dev).manual_seed(1),
+                          dev)
+    out = {}
+    logits, cache = transformer.prefill(cfg, model, prompt, seq + 8)
+    out["prefill"] = profiled(
+        lambda: transformer.prefill(cfg, model, prompt, seq + 8))
+    if cfg.family != "encoder":
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        transformer.decode_step(cfg, model, cache, tok, seq)   # warm-up
+        out["decode_step"] = profiled(
+            lambda: transformer.decode_step(cfg, model, cache, tok, seq + 1))
+    return out
+
+
+def families(dev, entries) -> None:
+    """The other LM families, counted: ``launch.serve.run`` serves
+    mamba2-130m, zamba2-2.7b, granite-moe-3b-a800m and internvl2-1b at
+    their published widths and depths, and qwen3-moe-235b-a22b at its
+    widths with the depth cut to 2, in bf16 with the CUDA flash kernel
+    (``flash_pallas``); ``transformer.prefill``'s encoder branch runs
+    hubert-xlarge's forward, bidirectional.  Then, uncounted: each whole
+    path in f32 at depth 2 against the chunked path, the flash forward
+    against its plain version at each new layer shape, at the batch and
+    positions its serving run gives it, and one AdamW step of five
+    families at depth 2 in f32, kernels against chunked, with its
+    launches counted.  The launch counts of the runs join the flash
+    entries in ``entries`` (the ``kernels`` line) as
+    ``launches_families``."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.core.device import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_fn, make_train_step
+
+    smi = smi_line()
+    counts = {"flash_attention": {}, "flash_attention_bwd": {}}
+
+    def no_other_kernel(what):
+        check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
+              == 0, f"{what} launched a stencil kernel")
+
+    # ---- serving at the published widths, bf16, counted ------------------
+    for arch, batch, prompt, new, depth in FAMILY_SERVE:
+        name = arch
+        if depth is not None:       # a cut config, registered for the run
+            name = f"{arch} (depth {depth})"
+            C.register(dataclasses.replace(C.get_config(arch), name=name,
+                                           n_layers=depth))
+        cfg = C.get_config(name)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = serve.run(name, batch=batch, prompt_len=prompt, max_new=new,
+                        reduced=False, seed=0, repeats=FAMILY_REPEATS,
+                        device=dev, attention_impl="flash_pallas")
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        launches = fa.flash_attention_fwd.launches
+        want = attention_calls(cfg)
+        print(f"[main path families] {name}: flash_attention launches "
+              f"{launches} ({res.kernel_launches_per_prefill} per prefill, "
+              f"{1 + FAMILY_REPEATS} prefills)", flush=True)
+        no_other_kernel(name)
+        check(fa.flash_attention_bwd_dq.launches == 0
+              and fa.flash_attention_bwd_dkdv.launches == 0,
+              f"{name}: serving launched a backward kernel")
+        check(res.kernel_launches_per_prefill == want,
+              f"{name}: {res.kernel_launches_per_prefill} flash launches per "
+              f"prefill, not {want}")
+        check(launches == want * (1 + FAMILY_REPEATS),
+              f"{name}: {launches} flash launches, not "
+              f"{want * (1 + FAMILY_REPEATS)}")
+        check(tuple(res.tokens.shape) == (batch, new)
+              and int(res.tokens.min()) >= 0
+              and int(res.tokens.max()) < cfg.vocab, f"{name}: tokens")
+        counts["flash_attention"][name] = launches
+        seq = prompt + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+        row = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers,
+                   depth_cut=depth is not None, n_params=cfg.n_params(),
+                   n_active_params=cfg.n_active_params(), batch=batch,
+                   prompt_tokens=prompt, positions=seq, new_tokens=new,
+                   dtype="bfloat16", prefill_ms=res.prefill_ms,
+                   prefill_tok_per_s=batch * seq / (res.prefill_ms * 1e-3),
+                   decode_ms_per_step=res.decode_ms / res.decode_steps,
+                   decode_tok_per_s=res.decode_tok_per_s,
+                   launches_per_prefill=res.kernel_launches_per_prefill,
+                   peak_gb=res.peak_bytes / 1e9, host_s_with_init=host_s,
+                   card=smi)
+        print("[families serve] " + json.dumps(row), flush=True)
+        del res
+        torch.cuda.empty_cache()
+        prof = family_profiles(dataclasses.replace(
+            cfg, attention_impl="flash_pallas"), batch, seq, dev)
+        print(f"[families profile] {name} B{batch} S{seq}: "
+              f"{json.dumps(dict(prof, card=smi))}", flush=True)
+        torch.cuda.empty_cache()
+
+    # the encoder: transformer.prefill's encoder branch, bidirectional
+    cfg = dataclasses.replace(C.get_config(ENCODER_ARCH),
+                              attention_impl="flash_pallas")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = init_params(transformer.build_model(cfg, dev),
+                        torch.Generator(dev).manual_seed(0))
+    frames = family_batch(cfg, ENCODER_BATCH, ENCODER_FRAMES,
+                          torch.Generator(dev).manual_seed(1), dev)
+    del frames["mask"]
+    causal_flags = []
+    launch = fa._launch
+
+    def spy(q, k, v, causal, window, with_lse):
+        causal_flags.append(causal)
+        return launch(q, k, v, causal, window, with_lse)
+
+    zero_counts()
+    fa._launch = spy
+    try:
+        transformer.prefill(cfg, model, frames, 0)       # warm-up, counted
+        torch.cuda.synchronize()
+    finally:
+        fa._launch = launch
+    launches = fa.flash_attention_fwd.launches
+    print(f"[main path families] {ENCODER_ARCH}: flash_attention launches "
+          f"{launches}, causal flags {sorted(set(causal_flags))}", flush=True)
+    no_other_kernel(ENCODER_ARCH)
+    check(launches == cfg.n_layers == len(causal_flags)
+          and not any(causal_flags), f"{ENCODER_ARCH}: {launches} launches "
+          f"with causal flags {set(causal_flags)}, not {cfg.n_layers} "
+          "bidirectional")
+    counts["flash_attention"][ENCODER_ARCH] = launches
+    best = float("inf")
+    for _ in range(FAMILY_REPEATS):
+        with Timer(dev) as t:
+            logits, cache = transformer.prefill(cfg, model, frames, 0)
+        best = min(best, t.ms)
+    check(cache == {} and tuple(logits.shape) == (ENCODER_BATCH, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "encoder logits")
+    row = dict(arch=ENCODER_ARCH, family="encoder", n_layers=cfg.n_layers,
+               n_params=cfg.n_params(), batch=ENCODER_BATCH,
+               frames=ENCODER_FRAMES, dtype="bfloat16", forward_ms=best,
+               frames_per_s=ENCODER_BATCH * ENCODER_FRAMES / (best * 1e-3),
+               launches_per_forward=launches,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=smi)
+    print("[families serve] " + json.dumps(row), flush=True)
+    del model, frames, logits
+    torch.cuda.empty_cache()
+    prof = family_profiles(cfg, ENCODER_BATCH, ENCODER_FRAMES, dev)
+    print(f"[families profile] {ENCODER_ARCH} B{ENCODER_BATCH} "
+          f"S{ENCODER_FRAMES}: {json.dumps(dict(prof, card=smi))}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the whole paths, f32, depth 2: kernel vs chunked, uncounted -----
+    whole = {}
+    batch, seq = 1, FAMILY_WHOLE_PATH_SEQ
+    for arch in FAMILY_WHOLE_PATH:
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=2,
+                                  activ_dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        model = init_params(transformer.build_model(cfg, dev),
+                            torch.Generator(dev).manual_seed(0))
+        prompt = family_batch(cfg, batch, seq,
+                              torch.Generator(dev).manual_seed(1), dev)
+        got = {}
+        for impl in ("flash_pallas", "flash_jnp"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            got[impl], _ = transformer.prefill(c, model, prompt, seq + 8)
+        whole[arch] = held(
+            got["flash_pallas"], got["flash_jnp"], LM_WHOLE_PATH_TOL,
+            f"whole path {arch} f32 depth 2 B{batch} S{seq}: last-position "
+            "logits, kernel vs chunked")
+        del model, prompt, got
+        torch.cuda.empty_cache()
+
+    # ---- the flash forward against its plain version, uncounted ----------
+    gen = torch.Generator(dev).manual_seed(2)
+    shapes = {}
+    for arch, causal, b, s in FAMILY_LAYER_SHAPES:
+        cfg = C.get_config(arch)
+        h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+        shape = (f"B{b} S{s} H{h} KV{kv} hd{hd} "
+                 f"{'causal' if causal else 'bidirectional'} ({arch})")
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in ((b, s, h, hd), (b, s, kv, hd),
+                                  (b, s, kv, hd)))
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v,
+                                                          causal=causal)
+            name = str(dtype).removeprefix("torch.")
+            what = f"flash {name} {shape}"
+            if dtype == torch.float32:
+                row["max_abs_err_f32"] = held(out, want, 2e-5,
+                                              what + ": out vs plain")
+            else:
+                row["max_abs_err_bf16"], row["bf16_share_of_limit"] = \
+                    held_bf16(out, want, what + ": out vs plain")
+                # the limit's power: one key less for every row (the
+                # diagonal key of a causal row, the last key otherwise),
+                # on the rows that keep at least S/2 keys (the chunked
+                # path: the dense one's scores would not fit the card)
+                if causal:
+                    fewer = attn.flash_attention(q, k, v, causal=True,
+                                                 q_offset=-1)
+                else:
+                    fewer, _ = fa.flash_attention_fwd_plain(
+                        q, k[:, :-1], v[:, :-1], causal=False)
+                rows = slice(s // 2 if causal else 0, None)
+                gap = (fewer[:, rows].double() - want[:, rows].double()).abs()
+                share = float((gap / (BF16_ATOL + BF16_RTOL * want[
+                    :, rows].double().abs())).max())
+                print(f"[check] bf16 limit control, {shape}: one key less "
+                      f"a row is {share:.2f} of the limit on rows "
+                      f"{rows.start}.. (must exceed 1)", flush=True)
+                check(share > 1.0, f"the bf16 limit passes one key less a "
+                      f"row at {shape}")
+                row["bf16_control_share"] = share
+                del fewer, gap
+            row[f"max_abs_err_lse_{name}"] = held(
+                lse, want_lse, 1e-4, what + ": lse vs plain")
+            del q, k, v, out, lse, want, want_lse
+        shapes[arch] = row
+    torch.cuda.empty_cache()
+
+    # ---- one AdamW step, f32, depth 2: kernels vs chunked, counted -------
+    trained = {}
+    for arch in FAMILY_TRAIN:
+        cfg = dataclasses.replace(C.get_config(arch), n_layers=2,
+                                  microbatches=1, activ_dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        calls = attention_calls(cfg)
+        model = init_params(transformer.build_model(cfg, dev),
+                            torch.Generator(dev).manual_seed(0))
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        batch = family_batch(cfg, 1, FAMILY_TRAIN_SEQ,
+                             torch.Generator(dev).manual_seed(3), dev)
+        if cfg.family == "encoder":
+            batch["labels"] = torch.randint(
+                0, cfg.vocab, batch["mask"].shape, device=dev,
+                generator=torch.Generator(dev).manual_seed(4))
+        else:
+            batch["labels"] = batch["tokens"]
+        got = {}
+        for impl in ("flash_pallas", "flash_jnp"):
+            c = dataclasses.replace(cfg, attention_impl=impl)
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            loss = loss_fn(c, model, batch)
+            names, leaves = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, leaves)
+            ocfg = opt.OptConfig(lr=TRAIN_CHECK_LR, warmup=1, total_steps=1,
+                                 schedule=c.schedule)
+            ostate = opt.init_state(model)
+            zero_counts()
+            make_train_step(c, ocfg)(model, ostate, batch)
+            torch.cuda.synchronize()
+            launched = (fa.flash_attention_fwd.launches,
+                        fa.flash_attention_bwd_dq.launches,
+                        fa.flash_attention_bwd_dkdv.launches)
+            no_other_kernel(f"{arch} train step")
+            want = ((2 * calls, calls, calls) if impl == "flash_pallas"
+                    else (0, 0, 0))
+            check(launched == want, f"{arch} {impl} train step launched "
+                  f"{launched} (forward, dQ, dK/dV), not {want}")
+            if impl == "flash_pallas":
+                print(f"[main path families] {arch} train step (depth 2, "
+                      f"remat): flash launches forward {launched[0]}, "
+                      f"dQ {launched[1]}, dK/dV {launched[2]}", flush=True)
+                counts["flash_attention"][arch + " train"] = launched[0]
+                counts["flash_attention_bwd"][arch + " train"] = launched[2]
+            got[impl] = dict(loss=float(loss.detach()),
+                             grads=dict(zip(names, grads)),
+                             params={n: p.detach().clone()
+                                     for n, p in model.named_parameters()})
+            del ostate, loss, grads
+            torch.cuda.empty_cache()
+        k_, c_ = got["flash_pallas"], got["flash_jnp"]
+        loss_err = abs(k_["loss"] - c_["loss"])
+        check(math.isfinite(k_["loss"]) and loss_err < TRAIN_LOSS_TOL,
+              f"{arch} train f32 depth 2: loss {k_['loss']} vs {c_['loss']}")
+        grad_share = 0.0
+        for n, g in k_["grads"].items():
+            w = c_["grads"][n]
+            check(bool(torch.isfinite(g).all()), f"{arch} grad {n}: "
+                  "non-finite")
+            lim = TRAIN_GRAD_TOL * float(w.abs().max())
+            err = float((g.double() - w.double()).abs().max())
+            check(err <= lim, f"{arch} grad {n}: max|err| {err:.3e} > "
+                  f"{lim:.3e}")
+            grad_share = max(grad_share, err / lim if lim else 0.0)
+        param_err = max(float((p - c_["params"][n]).abs().max())
+                        for n, p in k_["params"].items())
+        check(param_err < TRAIN_PARAM_TOL, f"{arch} params after one AdamW "
+              f"step: max|err| {param_err:.3e} >= {TRAIN_PARAM_TOL:g}")
+        table = "head" if "head" in init else "embed.table"
+        moved = float((k_["params"][table] - init[table]).abs().median())
+        check(moved > 0.5 * TRAIN_CHECK_LR, f"{arch}: the step moved "
+              f"{table} by a median {moved:.3e} only")
+        trained[arch] = dict(loss=k_["loss"], loss_err=loss_err,
+                             grad_share_of_limit=grad_share,
+                             param_err=param_err, moved_median=moved)
+        print(f"[check] {arch} train f32 depth 2 B1 S{FAMILY_TRAIN_SEQ}: "
+              f"loss {k_['loss']:.6f}, kernels vs chunked |err| "
+              f"{loss_err:.3e} (< {TRAIN_LOSS_TOL:g}); every gradient leaf "
+              f"within {TRAIN_GRAD_TOL:g} of its largest |value| (at most "
+              f"{grad_share:.4f} of that limit); parameters after the step "
+              f"max|err| {param_err:.3e} (< {TRAIN_PARAM_TOL:g}); {table} "
+              f"moved by a median {moved:.3e}", flush=True)
+        del model, init, got, k_, c_, batch
+        torch.cuda.empty_cache()
+    print("[families] " + json.dumps(dict(
+        whole_path_f32_max_abs_err=whole, layer_shapes=shapes,
+        train=trained, launches=counts, card=smi)), flush=True)
+    for e in entries:
+        if e["name"] in counts:
+            e["launches_families"] = counts[e["name"]]
 
 
 if __name__ == "__main__":

@@ -30,6 +30,11 @@ def register(cfg: "ArchConfig") -> "ArchConfig":
 
 
 def get_config(name: str) -> "ArchConfig":
+    if name == "stencil-suite" and name not in _REGISTRY:
+        raise NotImplementedError(
+            "the stencil-suite arch config is selected by the dry run, "
+            "which is not ported to repro_torch yet: ROADMAP Queue 1 item "
+            "16b (run the Table-2 stencils through compile_stencil)")
     return _REGISTRY[name]
 
 
@@ -105,6 +110,17 @@ class ArchConfig:
         from repro_torch.models import transformer
         from repro_torch.models.params import tree_count
         return tree_count(transformer.param_defs(self))
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: top_k of the padded experts
+        count as active, the rest not)."""
+        n = self.n_params()
+        if self.family == "moe":
+            per_expert = self.d_model * self.d_ff * (
+                3 if self.act in ("swiglu", "geglu") else 2)
+            n -= self.n_layers * per_expert * (self.n_experts_padded
+                                               - self.top_k)
+        return n
 
     # ------------------------------------------------------------- shaping --
     def supports(self, shape_name: str) -> tuple[bool, str]:

@@ -1,4 +1,4 @@
-"""Serving driver: batched prefill + greedy decode for a dense decoder.
+"""Serving driver: batched prefill + greedy decode for any decoder arch.
 
 Counterpart of the reference's ``repro/launch/serve.py``.
 
@@ -8,7 +8,10 @@ Counterpart of the reference's ``repro/launch/serve.py``.
 
 The weights are the config's published shapes (``--full``; the reduced
 CPU-sized config otherwise) initialised from ``--seed``, as the
-reference does; no checkpoint is read.  ``attention_impl`` sets the
+reference does; no checkpoint is read.  A VLM's prompt is its
+``vlm_patches`` patch embeddings (drawn from the same seeded generator)
+before the tokens, and its cache and positions count them.  An
+encoder-only arch does not decode and is refused.  ``attention_impl`` sets the
 config field both packages share (``flash_pallas`` runs the CUDA flash
 kernel in every prefill layer, ``flash_jnp`` the chunked torch path).
 Times are CUDA events on the card (the host clock on the CPU): one
@@ -56,6 +59,9 @@ def run(arch: str, *, batch: int = 4, prompt_len: int = 32,
     cfg = C.get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if cfg.family == "encoder":
+        raise ValueError(f"{arch} is encoder-only: encoder-only archs do "
+                         "not decode")
     if attention_impl is not None:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     device = resolve_device(device)
@@ -64,13 +70,18 @@ def run(arch: str, *, batch: int = 4, prompt_len: int = 32,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     params = init_params(transformer.build_model(cfg, device), gen)
-    cache_len = prompt_len + max_new + 8
+    patches = cfg.vlm_patches if cfg.family == "vlm" else 0
+    cache_len = prompt_len + max_new + patches + 8
     prompt = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
                                       generator=gen, device=device)}
+    if patches:
+        prompt["patches"] = torch.randn(
+            (batch, patches, cfg.vlm_patch_dim), generator=gen,
+            device=device).to(cfg.activ_dtype)
 
     prefill = serve.make_prefill(cfg, cache_len)
     decode = serve.make_decode_step(cfg)
-    pos = prompt_len
+    pos = prompt_len + patches
     # warm-up: the first calls pay the kernel build and allocator growth
     before = flash_attention_fwd.launches
     tok, cache = prefill(params, prompt)

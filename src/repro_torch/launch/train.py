@@ -39,6 +39,19 @@ from repro_torch.train.data import Prefetcher
 from repro_torch.train.train_step import make_train_step
 
 
+def reduced_shapes(cfg, batch: int, seq: int) -> dict:
+    """The input shapes of a ``batch`` × ``seq`` run, in the reference's
+    order: frames, mask and labels for the encoder; tokens and labels,
+    and for the VLM ``vlm_patches`` patches besides."""
+    if cfg.family == "encoder":
+        return {"frames": (batch, seq, cfg.d_model), "mask": (batch, seq),
+                "labels": (batch, seq)}
+    out = {"tokens": (batch, seq), "labels": (batch, seq)}
+    if cfg.family == "vlm":
+        out["patches"] = (batch, cfg.vlm_patches, cfg.vlm_patch_dim)
+    return out
+
+
 @dataclasses.dataclass
 class TrainStats:
     """What one :func:`train` measured, on ``device``'s clock."""
@@ -90,9 +103,9 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
         state = opt.init_state(params)
 
     step_fn = make_train_step(cfg, ocfg)
-    shapes = {"tokens": (batch, seq), "labels": (batch, seq)}
     pf = Prefetcher(cfg, "train_4k", start_step=start, seed=seed,
-                    reduced_shapes=shapes, device=device)
+                    reduced_shapes=reduced_shapes(cfg, batch, seq),
+                    device=device)
     losses, gnorms, times = [], [], []
     t0 = time.time()
     try:

@@ -12,7 +12,9 @@ compile-size device that an eager loop does not need.
 
 Weights keep the reference's ``x @ w`` orientation, ``(d_in, d_out)``,
 so :func:`params_from_jax` carries a reference tree across unchanged
-apart from unstacking the L dim.  Sharding specs are not ported
+apart from unstacking the L dim of ``blocks`` (an MoE block's experts
+keep their leading E; the hybrid's ``shared_attn`` is not stacked, and
+the encoder's empty ``embed_in`` names no parameter).  Sharding specs are not ported
 (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations

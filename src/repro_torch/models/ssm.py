@@ -1,0 +1,214 @@
+"""Mamba2 / SSD (state-space duality) mixer: chunked scan and O(1) decode.
+
+Counterpart of the reference's ``repro/models/ssm.py``; plain torch, as
+the reference is plain ``jnp`` (no Pallas kernel).  The SSD recurrence
+``h_{s+1} = exp(dt·A)·h_s + dt·B x_s`` streamed over the sequence is a
+1-D stencil in time, and the chunked algorithm is temporal blocking: each
+chunk of ``chunk`` steps is one dense (quadratic-in-chunk) pass, and the
+state is carried from chunk to chunk by one scan step per chunk.  Decode
+keeps the ``(h, n, p)`` state resident across steps.
+
+The reference's simplifications hold here too: the causal conv runs on x
+only (not xBC), and the B/C groups are expanded to heads first.  Every
+scan product is float32.  The reference's four-operand einsum of the
+intra-chunk term is two products in a fixed order, ``(C·Bᵀ) ∘ L`` then
+``· (x·dt)``, so no temporary is larger than one ``(b, nc, h, q, q)``
+float32 tensor; its ``lax.scan`` over chunks is a Python loop that
+emits each chunk's state *before* the chunk, as the scan does.
+
+``ssm_impl="boundary_stub"`` (the reference's dry-run stand-in for a
+fused SSD kernel) comes with the dry run, ROADMAP Queue 1 item 16b.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models.params import ParamDef
+
+
+def ssm_defs(d_model: int, d_inner: int, n_heads: int, d_state: int,
+             n_groups: int, d_conv: int = 4):
+    return {
+        "wz": ParamDef((d_model, d_inner)),
+        "wx": ParamDef((d_model, d_inner)),
+        "wB": ParamDef((d_model, n_groups * d_state)),
+        "wC": ParamDef((d_model, n_groups * d_state)),
+        "wdt": ParamDef((d_model, n_heads)),
+        "conv_w": ParamDef((d_conv, d_inner), "normal", scale=0.5),
+        "A_log": ParamDef((n_heads,), "zeros"),
+        "D": ParamDef((n_heads,), "ones"),
+        "dt_bias": ParamDef((n_heads,), "zeros"),
+        "norm": ParamDef((d_inner,), "ones"),
+        "out_proj": ParamDef((d_inner, d_model)),
+    }
+
+
+def _check_impl(cfg) -> None:
+    impl = getattr(cfg, "ssm_impl", "chunked_jnp")
+    if impl != "chunked_jnp":
+        raise NotImplementedError(
+            f"ssm_impl {impl!r} is not ported to repro_torch: the "
+            "boundary_stub is the dry run's stand-in, ROADMAP Queue 1 item "
+            "16b (use ssm_impl='chunked_jnp')")
+
+
+def _causal_conv(x, w):
+    """Depthwise causal conv over seq. x: (B,S,C); w: (K,C).  The taps
+    are summed in the reference's order, oldest first."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    return out
+
+
+def _segsum(dA):
+    """dA: (..., Q) -> (..., Q, Q) log-decay matrix: sum_{j<i<=q} dA_i,
+    -inf above the diagonal."""
+    q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]          # (..., q_i, q_j)
+    idx = torch.arange(q, device=dA.device)
+    mask = idx[:, None] >= idx[None, :]
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128):
+    """Chunked SSD. x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,h,n) D:(h,).
+
+    Returns y:(b,s,h,p) float32 and the final state (b,h,n,p) float32.
+    A sequence that is no multiple of ``chunk`` is zero-padded (dt = 0
+    leaves the state as it is), as in the reference.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    sp = x.shape[1]
+    nc = sp // chunk
+
+    xr = x.reshape(b, nc, chunk, h, p).float()
+    dtr = dt.reshape(b, nc, chunk, h).float()
+    Br = B.reshape(b, nc, chunk, h, n).float()
+    Cr = C.reshape(b, nc, chunk, h, n).float()
+
+    dA_h = (dtr * A).permute(0, 1, 3, 2)                 # (b,nc,h,q) ≤ 0
+    cs = torch.cumsum(dA_h, dim=-1)
+
+    # intra-chunk: (C_q · B_k) ∘ L_qk, then times x_k·dt_k
+    L = torch.exp(_segsum(dA_h))                         # (b,nc,h,q,k)
+    xdt = xr * dtr[..., None]                            # (b,nc,k,h,p)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cr, Br) * L
+    y = torch.einsum("bchqk,bckhp->bcqhp", scores, xdt)
+    del scores, L
+
+    # per-chunk end states: sum_k exp(cs_end - cs_k) dt_k B_k ⊗ x_k
+    decay_to_end = torch.exp(cs[..., -1:] - cs)          # (b,nc,h,k)
+    states = torch.einsum("bckhn,bckhp->bchnp",
+                          Br * decay_to_end.permute(0, 1, 3, 2)[..., None],
+                          xdt)
+
+    # inter-chunk scan, one step per chunk; keeps the state before each
+    chunk_decay = torch.exp(cs[..., -1])                 # (b,nc,h)
+    carry = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(before, dim=1)             # (b,nc,h,n,p)
+
+    in_decay = torch.exp(cs).permute(0, 1, 3, 2)         # (b,nc,q,h)
+    y = y + torch.einsum("bcqhn,bchnp->bcqhp", Cr * in_decay[..., None],
+                         prev_states)
+
+    y = y.reshape(b, sp, h, p)[:, :s]
+    y = y + x[:, :s].float() * D[None, None, :, None]
+    return y, carry
+
+
+def ssd_decode_step(state, x, dt, A, B, C, D):
+    """One-token SSD update. state:(b,h,n,p) x:(b,h,p) dt:(b,h) B,C:(b,h,n)."""
+    x32, dt32 = x.float(), dt.float()
+    dA = torch.exp(dt32 * A[None, :])                    # (b,h)
+    inc = torch.einsum("bhn,bhp->bhnp", B.float() * dt32[..., None], x32)
+    state = state * dA[..., None, None] + inc
+    y = torch.einsum("bhn,bhnp->bhp", C.float(), state)
+    return y + x32 * D[None, :, None], state
+
+
+def _dt_A_D(p, dt_in):
+    dt = F.softplus(dt_in.float() + p["dt_bias"].float())
+    return dt, -torch.exp(p["A_log"].float()), p["D"].float()
+
+
+def _heads(t, g, hpg):
+    """(..., g·n) → (..., g·hpg, n): each group's B/C repeated over its
+    heads (``jnp.repeat`` on the group axis)."""
+    t = t.reshape(*t.shape[:-1], g, -1)
+    return torch.repeat_interleave(t, hpg, dim=-2)
+
+
+def _mix(x, p, cfg, chunk):
+    """The mixer on (B, S, d): (out, xin, final state)."""
+    _check_impl(cfg)
+    h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
+    b, s, _ = x.shape
+    z = matmul(x, p["wz"])
+    xin = matmul(x, p["wx"])
+    xs = F.silu(_causal_conv(xin, p["conv_w"]))
+    B = _heads(matmul(x, p["wB"]), g, h // g)
+    C = _heads(matmul(x, p["wC"]), g, h // g)
+    dt, A, D = _dt_A_D(p, matmul(x, p["wdt"]))
+    y, final = ssd_chunked(xs.reshape(b, s, h, hd), dt, A, B, C, D,
+                           chunk=chunk)
+    y = y.reshape(b, s, h * hd).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return matmul(y, p["out_proj"]), xin, final
+
+
+def apply_ssm(x, p, cfg, *, chunk: int = 128):
+    """Full mamba2 mixer on (B, S, d_model) -> (B, S, d_model)."""
+    return _mix(x, p, cfg, chunk)[0]
+
+
+def apply_ssm_with_state(x, p, cfg, *, chunk: int = 128):
+    """Like :func:`apply_ssm` but also returns ``(conv_tail,
+    final_ssm_state)`` so a prefill can hand off to O(1) decode: the tail
+    is the last ``K`` rows of the pre-conv input, left-padded with zeros
+    when ``S < K``; the state is float32."""
+    out, xin, final = _mix(x, p, cfg, chunk)
+    k, s = p["conv_w"].shape[0], x.shape[1]
+    tail = xin[:, -k:] if s >= k else F.pad(xin, (0, 0, k - s, 0))
+    return out, tail, final
+
+
+def ssm_decode(x, p, cfg, conv_state, ssm_state):
+    """Single-token mixer. x: (B, 1, d). Carries (conv_state, ssm_state)
+    and returns ``(out, conv_state, ssm_state)``."""
+    _check_impl(cfg)
+    h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
+    b = x.shape[0]
+    z = matmul(x, p["wz"])
+    xin = matmul(x, p["wx"])[:, 0]                       # (B, d_inner)
+    cat = torch.promote_types(conv_state.dtype, xin.dtype)
+    conv_state = torch.cat([conv_state[:, 1:].to(cat), xin[:, None].to(cat)],
+                           dim=1)
+    prod = torch.promote_types(cat, p["conv_w"].dtype)
+    xs = F.silu(torch.einsum("bkc,kc->bc", conv_state.to(prod),
+                             p["conv_w"].to(prod)))
+    B = _heads(matmul(x, p["wB"])[:, 0], g, h // g)
+    C = _heads(matmul(x, p["wC"])[:, 0], g, h // g)
+    dt, A, D = _dt_A_D(p, matmul(x, p["wdt"])[:, 0])
+    y, ssm_state = ssd_decode_step(ssm_state, xs.reshape(b, h, hd), dt, A,
+                                   B, C, D)
+    y = y.reshape(b, 1, h * hd).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"])
+    return matmul(y, p["out_proj"]), conv_state, ssm_state

@@ -1,29 +1,44 @@
-"""Decoder LMs of the port: the dense family (pre-norm attention and a
-(Swi/Ge)GLU MLP — h2o-danube, minicpm, gemma, qwen3).
+"""Model zoo of the port: decoder LMs (dense, MoE, SSM, hybrid), the
+encoder and the VLM wrapper.
 
-Counterpart of the dense branches of the reference's
-``repro/models/transformer.py``.  The reference stacks the layers on a
-leading L dim and scans over them; here the layers are an
-``nn.ModuleList`` (``models/params.py``) and the loop is a Python loop,
-and the decode cache is a list of per-layer dicts.  Attention goes
-through the compile-once front door (``api/attention.py``), so a config
-with ``attention_impl="flash_pallas"`` runs the CUDA flash kernel in
-every prefill layer.
+Counterpart of the reference's ``repro/models/transformer.py``.  Families:
+
+  dense    — pre-norm attention + (Swi/Ge)GLU MLP   (danube/minicpm/gemma/qwen3)
+  moe      — attention + top-k MoE FFN              (qwen3-moe/granite-moe)
+  ssm      — mamba2 SSD mixer only                  (mamba2-130m)
+  hybrid   — mamba2 blocks + one *shared* attention+MLP block applied
+             every ``attn_every`` layers            (zamba2)
+  encoder  — bidirectional attention, LayerNorm, masked-prediction head
+             (frames arrive pre-embedded)           (hubert)
+  vlm      — decoder LM with a patch-embedding prefix (internvl2)
+
+The reference stacks the layers on a leading L dim and scans over them;
+here the layers are an ``nn.ModuleList`` (``models/params.py``), the loop
+is a Python loop, and a decode cache is a list of per-layer dicts (the
+hybrid's shared block has a list of its own, one entry per invocation,
+indexed by ``layer // attn_every``).  Attention goes through the
+compile-once front door (``api/attention.py``), so a config with
+``attention_impl="flash_pallas"`` runs the CUDA flash kernel in every
+prefill layer that attends (none for the SSM family, one per shared
+invocation for the hybrid; the encoder's is bidirectional).
 
 Training: :func:`train_loss` is the reference's (``forward_hidden`` then
-the chunked cross-entropy of ``models/layers.py``).  With ``cfg.remat``
-and grad enabled, each block runs under ``torch.utils.checkpoint``
-(non-reentrant), as the reference wraps it in ``jax.checkpoint`` with
-``nothing_saveable``: only the block's input is kept, and the block is
-run again in the backward — so a ``flash_pallas`` config launches the
-flash forward kernel twice per layer and the backward kernels once.
+the chunked cross-entropy of ``models/layers.py``, plus the MoE's aux
+loss times ``moe_aux_weight``).  With ``cfg.remat`` and grad enabled,
+each layer runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps it in ``jax.checkpoint`` with ``nothing_saveable``: only
+the layer's input is kept, and the layer — with the hybrid's shared
+block where it runs — is run again in the backward, so a
+``flash_pallas`` config launches the flash forward kernel twice per
+attention call and the backward kernels once.
 
-The MoE, SSM, hybrid, encoder and VLM families raise
-``NotImplementedError`` until their modules are ported (ROADMAP Queue 1
-item 15).  The reference's ``L.shard`` constraints are no-ops without a
-mesh and are dropped; the dry-run stand-in
-``attention_impl="boundary_stub"`` comes with the dry runs (item 16):
-``attention_program_for`` refuses it.
+The MoE block calls ``moe.apply_moe``, the dense dispatch, where the
+reference calls ``apply_moe_ep`` (which is ``apply_moe`` without a
+mesh); the expert-parallel path comes with LM sharding (ROADMAP Queue 1
+item 8b).  The reference's ``L.shard`` constraints are no-ops without a
+mesh and are dropped; the dry-run stand-ins ``attention_impl=
+"boundary_stub"`` and ``ssm_impl="boundary_stub"`` come with the dry run
+(item 16b): ``attention_program_for`` and ``models/ssm.py`` refuse them.
 """
 from __future__ import annotations
 
@@ -35,17 +50,17 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.api.attention import attention_program_for
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.params import ParamDef, ParamModule
 
-_LATER = "ROADMAP Queue 1 item 15 (model stack: MoE, SSM, hybrid, " \
-         "encoder and VLM families)"
+ATTN_FAMILIES = ("dense", "encoder", "vlm", "moe")
+FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
 
 
-def _dense_only(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported to repro_torch yet: "
-            f"{_LATER}")
+def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------- attention --
@@ -122,8 +137,36 @@ def attn_cache_defs(cfg, batch: int, cache_len: int):
 
 # -------------------------------------------------------------------- blocks --
 def block_defs(cfg):
-    """Per-layer parameter defs for one block of the dense family."""
-    _dense_only(cfg)
+    """Per-layer parameter defs for one block of cfg.family."""
+    fam = cfg.family
+    if fam in ("dense", "encoder", "vlm"):
+        return {
+            "ln1": L.norm_defs(cfg.d_model, cfg.norm),
+            "attn": attn_defs(cfg),
+            "ln2": L.norm_defs(cfg.d_model, cfg.norm),
+            "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff, cfg.act),
+        }
+    if fam == "moe":
+        mdefs, _ = moe_mod.moe_defs(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                    act=cfg.act)
+        return {
+            "ln1": L.norm_defs(cfg.d_model, cfg.norm),
+            "attn": attn_defs(cfg),
+            "ln2": L.norm_defs(cfg.d_model, cfg.norm),
+            "moe": mdefs,
+        }
+    if fam in ("ssm", "hybrid"):
+        return {
+            "ln1": L.norm_defs(cfg.d_model, cfg.norm),
+            "ssm": ssm_mod.ssm_defs(cfg.d_model, cfg.ssm_inner,
+                                    cfg.ssm_heads, cfg.ssm_state,
+                                    cfg.ssm_groups),
+        }
+    raise ValueError(fam)
+
+
+def shared_attn_defs(cfg):
+    """zamba2: one shared attention+MLP block reused every attn_every layers."""
     return {
         "ln1": L.norm_defs(cfg.d_model, cfg.norm),
         "attn": attn_defs(cfg),
@@ -132,13 +175,51 @@ def block_defs(cfg):
     }
 
 
+def _ffn(x, bp, cfg):
+    """The block's second half on the residual ``x`` → (y, aux)."""
+    h = L.apply_norm(x, bp["ln2"], cfg.norm)
+    if cfg.family == "moe":
+        return moe_mod.apply_moe(
+            h, bp["moe"], n_experts=cfg.n_experts,
+            n_padded=cfg.n_experts_padded, top_k=cfg.top_k, act=cfg.act,
+            capacity_factor=cfg.moe_capacity)
+    return L.apply_mlp(h, bp["mlp"], cfg.act), 0.0
+
+
 def apply_block(x, bp, cfg, *, positions):
-    """One dense block; returns (x, (k, v)) — k and v for the cache."""
-    h, kv = apply_attn(L.apply_norm(x, bp["ln1"], cfg.norm), bp["attn"],
-                       cfg, positions=positions)
+    """One block of cfg.family → ``(x, aux, (k, v))``: aux is the MoE's
+    loss (0.0 for the others), k and v are for the cache (None for a
+    mamba block)."""
+    if cfg.family in ATTN_FAMILIES:
+        h, kv = apply_attn(L.apply_norm(x, bp["ln1"], cfg.norm), bp["attn"],
+                           cfg, positions=positions,
+                           causal=cfg.family != "encoder")
+        x = x + h
+        y, aux = _ffn(x, bp, cfg)
+        return x + y, aux, kv
+    y = ssm_mod.apply_ssm(L.apply_norm(x, bp["ln1"], cfg.norm), bp["ssm"],
+                          cfg, chunk=cfg.ssm_chunk)
+    return x + y, 0.0, None
+
+
+def apply_shared(x, sp, cfg, *, positions):
+    """The hybrid's shared attention+MLP block → ``(x, (k, v))``."""
+    h, kv = apply_attn(L.apply_norm(x, sp["ln1"], cfg.norm), sp["attn"], cfg,
+                       positions=positions)
     x = x + h
-    y = L.apply_mlp(L.apply_norm(x, bp["ln2"], cfg.norm), bp["mlp"], cfg.act)
-    return x + y, kv
+    return x + L.apply_mlp(L.apply_norm(x, sp["ln2"], cfg.norm), sp["mlp"],
+                           cfg.act), kv
+
+
+def runs_shared(cfg, idx: int) -> bool:
+    """Whether layer ``idx`` of a hybrid applies the shared block first."""
+    return cfg.family == "hybrid" and idx % cfg.attn_every == 0
+
+
+def n_shared_invocations(cfg) -> int:
+    """How often a hybrid's forward applies the shared block."""
+    return -(-cfg.n_layers // cfg.attn_every) if cfg.family == "hybrid" \
+        else 0
 
 
 # ------------------------------------------------------------- full models --
@@ -146,9 +227,18 @@ def param_defs(cfg):
     """The parameter tree: ``blocks`` is a list of per-layer trees."""
     defs: dict[str, Any] = {"blocks": [block_defs(cfg)
                                        for _ in range(cfg.n_layers)]}
-    defs["embed"] = L.embed_defs(cfg.vocab, cfg.d_model)
-    if not cfg.tie_embeddings:
+    if cfg.family == "encoder":
+        defs["embed_in"] = {}  # frames arrive pre-embedded (modality stub)
+        defs["mask_embed"] = ParamDef((cfg.d_model,), "normal", 1.0)
         defs["head"] = ParamDef((cfg.vocab, cfg.d_model))
+    else:
+        defs["embed"] = L.embed_defs(cfg.vocab, cfg.d_model)
+        if not cfg.tie_embeddings:
+            defs["head"] = ParamDef((cfg.vocab, cfg.d_model))
+    if cfg.family == "hybrid":
+        defs["shared_attn"] = shared_attn_defs(cfg)
+    if cfg.family == "vlm":
+        defs["patch_proj"] = ParamDef((cfg.vlm_patch_dim, cfg.d_model))
     defs["ln_f"] = L.norm_defs(cfg.d_model, cfg.norm)
     return defs
 
@@ -166,54 +256,135 @@ def _embed(cfg, params, tokens):
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    return x
+
+
+def _inputs(cfg, params, batch):
+    """The stream the blocks read, in ``activ_dtype``: the frames (masked
+    ones replaced by ``mask_embed``) for the encoder; the token
+    embeddings otherwise, after the projected patches for the VLM."""
+    if cfg.family == "encoder":
+        x = batch["frames"].to(cfg.activ_dtype)
+        if "mask" in batch:
+            x = torch.where(batch["mask"][..., None],
+                            params["mask_embed"].to(x.dtype), x)
+        return x
+    x = _embed(cfg, params, batch["tokens"])
+    if cfg.family == "vlm":
+        patches = L.matmul(batch["patches"].to(x.dtype),
+                           params["patch_proj"])
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     return x.to(cfg.activ_dtype)
 
 
-def _block_out(x, bp, cfg, positions):
-    return apply_block(x, bp, cfg, positions=positions)[0]
+def _positions(x):
+    b, s = x.shape[:2]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def _layer(x, bp, shared, cfg, positions, idx):
+    """Layer ``idx`` of the forward (the shared block first where a
+    hybrid runs it) → (x, aux); the unit ``cfg.remat`` recomputes."""
+    if runs_shared(cfg, idx):
+        x, _ = apply_shared(x, shared, cfg, positions=positions)
+    x, aux, _ = apply_block(x, bp, cfg, positions=positions)
+    return x, aux
 
 
 def forward_hidden(cfg, params, batch):
-    """Embed + blocks + final norm -> hidden (B, S, d), aux loss (0 for
-    the dense family).  Differentiable; each block is rematerialised in
-    the backward when ``cfg.remat``."""
-    _dense_only(cfg)
-    x = _embed(cfg, params, batch["tokens"])
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    """Inputs + blocks + final norm -> hidden (B, S, d), aux loss (0.0
+    unless MoE; the VLM's patch rows are sliced off).  Differentiable;
+    each layer is rematerialised in the backward when ``cfg.remat``."""
+    _check_family(cfg)
+    x = _inputs(cfg, params, batch)
+    positions = _positions(x)
+    shared = params["shared_attn"] if cfg.family == "hybrid" else None
     remat = cfg.remat and torch.is_grad_enabled()
-    for bp in params["blocks"]:
+    aux = 0.0
+    for idx, bp in enumerate(params["blocks"]):
         if remat:
-            x = checkpoint(_block_out, x, bp, cfg, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_layer, x, bp, shared, cfg, positions, idx,
+                              use_reentrant=False)
         else:
-            x = _block_out(x, bp, cfg, positions)
-    return L.apply_norm(x, params["ln_f"], cfg.norm), 0.0
+            x, a = _layer(x, bp, shared, cfg, positions, idx)
+        aux = aux + a
+    x = L.apply_norm(x, params["ln_f"], cfg.norm)
+    if cfg.family == "vlm":
+        x = x[:, batch["patches"].shape[1]:]
+    return x, aux
 
 
 def train_loss(cfg, params, batch):
-    """Mean next-token cross-entropy over ``batch["loss_mask"]`` (all
-    positions when absent), against the tied embedding or the head."""
+    """Mean cross-entropy plus ``moe_aux_weight`` × the MoE aux loss: the
+    encoder against its untied head over ``batch["mask"]`` (no label
+    shift); the decoders against the tied embedding or the head over
+    ``batch["loss_mask"]`` (all positions when absent)."""
     hidden, aux = forward_hidden(cfg, params, batch)
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["head"])
-    loss = L.chunked_ce_loss(hidden, table, batch["labels"],
-                             batch.get("loss_mask"), chunk=cfg.loss_chunk)
+    if cfg.family == "encoder":
+        table = params["head"]
+        mask = batch["mask"].float()
+    else:
+        table = (params["embed"]["table"] if cfg.tie_embeddings
+                 else params["head"])
+        mask = batch.get("loss_mask")
+    loss = L.chunked_ce_loss(hidden, table, batch["labels"], mask,
+                             chunk=cfg.loss_chunk)
     return loss + cfg.moe_aux_weight * aux
 
 
 # ----------------------------------------------------------------- serving --
 def logits_fn(cfg, params, hidden):
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["head"])
+    table = (params["head"] if (cfg.family == "encoder"
+                                or not cfg.tie_embeddings)
+             else params["embed"]["table"])
     return torch.einsum("bsd,vd->bsv", hidden.float(), table.float())
 
 
 def cache_defs(cfg, batch: int, cache_len: int):
-    """Per-layer decode caches: ``{"attn": [layer's cache defs, ...]}``."""
-    _dense_only(cfg)
-    return {"attn": [attn_cache_defs(cfg, batch, cache_len)
-                     for _ in range(cfg.n_layers)]}
+    """Per-layer decode caches: ``{"attn": [...]}`` for the attention
+    decoders, ``{"ssm": [...]}`` for the SSM, and for the hybrid also
+    ``"shared_attn"``, one attention cache per shared invocation."""
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        return {"attn": [attn_cache_defs(cfg, batch, cache_len)
+                         for _ in range(cfg.n_layers)]}
+    if fam == "ssm":
+        return {"ssm": [_ssm_cache_defs(cfg, batch)
+                        for _ in range(cfg.n_layers)]}
+    if fam == "hybrid":
+        return {
+            "ssm": [_ssm_cache_defs(cfg, batch) for _ in range(cfg.n_layers)],
+            "shared_attn": [attn_cache_defs(cfg, batch, cache_len)
+                            for _ in range(n_shared_invocations(cfg))],
+        }
+    raise ValueError(f"{fam} has no decode cache (encoder-only)")
+
+
+def _ssm_cache_defs(cfg, batch: int):
+    """The last 4 pre-conv rows (``activ_dtype``) and the float32 state."""
+    return {
+        "conv": ParamDef((batch, 4, cfg.ssm_inner), "zeros"),
+        "state": ParamDef((batch, cfg.ssm_heads, cfg.ssm_state,
+                           cfg.ssm_head_dim), "zeros", dtype=torch.float32),
+    }
+
+
+def _cast_like(new, old):
+    return {name: t.to(old[name].dtype) for name, t in new.items()}
+
+
+def _shared_attn_decode(x, params, cfg, shared_cache, inv_idx, pos):
+    """Apply the zamba2 shared block with invocation ``inv_idx``'s cache
+    (replaced in the list)."""
+    sp = params["shared_attn"]
+    sl = shared_cache[inv_idx]
+    h, new_sl = apply_attn_decode(L.apply_norm(x, sp["ln1"], cfg.norm),
+                                  sp["attn"], cfg, cache=sl, layer_pos=pos)
+    x = x + h
+    x = x + L.apply_mlp(L.apply_norm(x, sp["ln2"], cfg.norm), sp["mlp"],
+                        cfg.act)
+    shared_cache[inv_idx] = _cast_like(new_sl, sl)
+    return x
 
 
 @torch.no_grad()
@@ -221,36 +392,82 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1) int; pos: int (synchronized
     batch).  Returns (logits (B, 1, V) float32, cache); the cache's k/v
     tensors are updated in place."""
-    _dense_only(cfg)
-    x = _embed(cfg, params, tokens)
-    new = []
-    for bp, sl in zip(params["blocks"], cache["attn"]):
-        h, new_sl = apply_attn_decode(
-            L.apply_norm(x, bp["ln1"], cfg.norm), bp["attn"], cfg,
-            cache=sl, layer_pos=pos)
-        x = x + h
-        y = L.apply_mlp(L.apply_norm(x, bp["ln2"], cfg.norm), bp["mlp"],
-                        cfg.act)
-        x = x + y
-        new.append({name: t.to(sl[name].dtype) for name, t in new_sl.items()})
+    fam = cfg.family
+    x = _embed(cfg, params, tokens).to(cfg.activ_dtype)
+    if fam in ("dense", "moe", "vlm"):
+        new = []
+        for bp, sl in zip(params["blocks"], cache["attn"]):
+            h, new_sl = apply_attn_decode(
+                L.apply_norm(x, bp["ln1"], cfg.norm), bp["attn"], cfg,
+                cache=sl, layer_pos=pos)
+            x = x + h
+            y, _ = _ffn(x, bp, cfg)
+            x = x + y
+            new.append(_cast_like(new_sl, sl))
+        new_cache = {"attn": new}
+    elif fam in ("ssm", "hybrid"):
+        shared = list(cache["shared_attn"]) if fam == "hybrid" else None
+        new = []
+        for idx, (bp, sl) in enumerate(zip(params["blocks"], cache["ssm"])):
+            if runs_shared(cfg, idx):
+                x = _shared_attn_decode(x, params, cfg, shared,
+                                        idx // cfg.attn_every, pos)
+            y, conv, state = ssm_mod.ssm_decode(
+                L.apply_norm(x, bp["ln1"], cfg.norm), bp["ssm"], cfg,
+                sl["conv"], sl["state"])
+            new.append(_cast_like({"conv": conv, "state": state}, sl))
+            x = x + y
+        new_cache = {"ssm": new}
+        if fam == "hybrid":
+            new_cache["shared_attn"] = shared
+    else:
+        raise ValueError(fam)
     x = L.apply_norm(x, params["ln_f"], cfg.norm)
-    return logits_fn(cfg, params, x), {"attn": new}
+    return logits_fn(cfg, params, x), new_cache
 
 
 @torch.no_grad()
 def prefill(cfg, params, batch, cache_len: int):
-    """Process a full prompt, returning (last-token logits, decode cache)."""
-    _dense_only(cfg)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = _embed(cfg, params, tokens)
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    caches = []
-    for bp in params["blocks"]:
-        x, (k, v) = apply_block(x, bp, cfg, positions=positions)
-        caches.append(_to_cache(cfg, k, v, s, cache_len))
+    """Process a full prompt, returning (last-token logits, decode cache).
+    The encoder returns its last frame's logits and an empty cache."""
+    fam = cfg.family
+    _check_family(cfg)
+    if fam == "encoder":
+        hidden, _ = forward_hidden(cfg, params, batch)
+        return logits_fn(cfg, params, hidden[:, -1:]), {}
+    x = _inputs(cfg, params, batch)
+    s = x.shape[1]
+    positions = _positions(x)
+    if fam in ("dense", "moe", "vlm"):
+        caches = []
+        for bp in params["blocks"]:
+            x, _, (k, v) = apply_block(x, bp, cfg, positions=positions)
+            caches.append(_to_cache(cfg, k, v, s, cache_len))
+        cache = {"attn": caches}
+    else:
+        shared = ([None] * n_shared_invocations(cfg) if fam == "hybrid"
+                  else None)
+        caches = []
+        for idx, bp in enumerate(params["blocks"]):
+            if runs_shared(cfg, idx):
+                x, (k, v) = apply_shared(x, params["shared_attn"], cfg,
+                                         positions=positions)
+                sl = _to_cache(cfg, k, v, s, cache_len)
+                shared[idx // cfg.attn_every] = {
+                    "k": sl["k"].to(cfg.activ_dtype),
+                    "v": sl["v"].to(cfg.activ_dtype),
+                    "slot_pos": sl["slot_pos"]}
+            y, conv, state = ssm_mod.apply_ssm_with_state(
+                L.apply_norm(x, bp["ln1"], cfg.norm), bp["ssm"], cfg,
+                chunk=cfg.ssm_chunk)
+            x = x + y
+            caches.append({"conv": conv.to(cfg.activ_dtype),
+                           "state": state.float()})
+        cache = {"ssm": caches}
+        if fam == "hybrid":
+            cache["shared_attn"] = shared
     x = L.apply_norm(x, params["ln_f"], cfg.norm)
-    return logits_fn(cfg, params, x[:, -1:]), {"attn": caches}
+    return logits_fn(cfg, params, x[:, -1:]), cache
 
 
 def _to_cache(cfg, k, v, s: int, cache_len: int):

@@ -32,12 +32,14 @@ def make_decode_step(cfg):
 
 def greedy_generate(cfg, params, prompt, max_new: int, cache_len: int):
     """Prefill + ``max_new - 1`` greedy decode steps → (B, max_new)
-    int32 tokens."""
+    int32 tokens.  A VLM's positions count its patches first."""
     prefill_step = make_prefill(cfg, cache_len)
     decode_one = make_decode_step(cfg)
     batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
     tok, cache = prefill_step(params, batch)
-    pos = batch["tokens"].shape[1]
+    pos = batch["tokens"].shape[1] if "tokens" in batch else 0
+    if cfg.family == "vlm":
+        pos += cfg.vlm_patches
     toks = [tok]
     for _ in range(max_new - 1):
         tok, cache = decode_one(params, cache, tok[:, None], pos)

@@ -1170,6 +1170,150 @@ def test_reduced_train_step_on_card_launch_counts(cuda_device):
                                    rtol=2e-4)
 
 
+# ---- the other LM families on the card -----------------------------------
+def _family(arch, device, **kw):
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import transformer
+    from repro_torch.models.params import init_params
+
+    cfg = dataclasses.replace(C.get_config(arch).reduced(), q_chunk=32,
+                              kv_chunk=32, **kw)
+    model = init_params(transformer.build_model(cfg, device),
+                        torch.Generator(device).manual_seed(0))
+    return cfg, model
+
+
+@pytest.mark.cuda
+def test_hybrid_prefill_launches_once_per_shared_invocation(cuda_device):
+    """Reduced zamba2 with 5 layers and ``attn_every`` 2: the shared
+    block runs at layers 0, 2 and 4, so a prefill launches the forward
+    kernel 3 times, and its logits and shared caches agree with the
+    chunked path's within 1e-4 (f32)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    cfg, model = _family("zamba2-2.7b", cuda_device, n_layers=5,
+                         attention_impl="flash_pallas")
+    assert transformer.n_shared_invocations(cfg) == 3
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    before = fa.flash_attention_fwd.launches
+    logits, cache = transformer.prefill(cfg, model, {"tokens": toks}, 136)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 3
+    assert len(cache["shared_attn"]) == 3
+    want, want_cache = transformer.prefill(
+        dataclasses.replace(cfg, attention_impl="flash_jnp"), model,
+        {"tokens": toks}, 136)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    for got, ref in zip(cache["shared_attn"], want_cache["shared_attn"]):
+        for key in ("k", "v", "slot_pos"):
+            torch.testing.assert_close(got[key], ref[key], atol=1e-4,
+                                       rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_encoder_forward_launches_bidirectional(cuda_device, monkeypatch):
+    """Reduced hubert-xlarge: the encoder's prefill launches the forward
+    kernel once per layer, every launch bidirectional, and its logits
+    agree with the chunked path's within 1e-4 (f32)."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    cfg, model = _family("hubert-xlarge", cuda_device,
+                         attention_impl="flash_pallas")
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    frames = torch.randn((2, 128, cfg.d_model), device=cuda_device,
+                         generator=gen)
+    batch = {"frames": frames,
+             "mask": torch.rand((2, 128), device=cuda_device,
+                                generator=gen) < 0.2}
+    flags = []
+    launch = fa._launch
+
+    def spy(q, k, v, causal, window, with_lse):
+        flags.append(causal)
+        return launch(q, k, v, causal, window, with_lse)
+
+    monkeypatch.setattr(fa, "_launch", spy)
+    before = fa.flash_attention_fwd.launches
+    logits, cache = transformer.prefill(cfg, model, batch, 0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + cfg.n_layers
+    assert flags == [False] * cfg.n_layers and cache == {}
+    want, _ = transformer.prefill(
+        dataclasses.replace(cfg, attention_impl="flash_jnp"), model, batch, 0)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [1.25, 1.0])
+@pytest.mark.parametrize("act", ["swiglu", "gelu"])
+def test_moe_block_on_card_matches_cpu(cuda_device, capacity_factor, act):
+    """``apply_moe`` at granite's 40 experts (48 slots), top-8, on the
+    card against the same call on the CPU, f32, within 1e-4: the
+    routing, the dropped slots (at capacity 1.0) and the bucket scatter
+    agree, and a second call on the card is equal bit for bit."""
+    from repro_torch.models import moe
+
+    defs, e = moe.moe_defs(64, 96, 40, act=act)
+    gen = torch.Generator().manual_seed(2)
+    p = {k: torch.randn(d.shape, generator=gen) * d.fan_in() ** -0.5
+         for k, d in defs.items()}
+    x = torch.randn((3, 200, 64), generator=gen)
+    kw = dict(n_experts=40, n_padded=e, top_k=8, act=act,
+              capacity_factor=capacity_factor)
+    want, want_aux = moe.apply_moe(x, p, **kw)
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    got, aux = moe.apply_moe(x.to(cuda_device), pc, **kw)
+    again, _ = moe.apply_moe(x.to(cuda_device), pc, **kw)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_hybrid_train_step_on_card_launch_counts(cuda_device):
+    """One step of reduced zamba2 (remat) on the card: the shared block's
+    2 invocations launch the forward kernel twice each (forward and
+    recompute) and each backward kernel once; the parameters agree with
+    the chunked path's within 2e-4."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    toks = torch.randint(0, 256, (2, 128), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    params = {}
+    for impl in ("flash_pallas", "flash_jnp"):
+        cfg, model = _family("zamba2-2.7b", cuda_device, remat=True,
+                             attention_impl=impl)
+        state = opt.init_state(model)
+        counts = (fa.flash_attention_fwd.launches,
+                  fa.flash_attention_bwd_dq.launches,
+                  fa.flash_attention_bwd_dkdv.launches)
+        make_train_step(cfg, opt.OptConfig(lr=1e-3, warmup=1))(
+            model, state, {"tokens": toks, "labels": toks})
+        torch.cuda.synchronize()
+        launched = (fa.flash_attention_fwd.launches - counts[0],
+                    fa.flash_attention_bwd_dq.launches - counts[1],
+                    fa.flash_attention_bwd_dkdv.launches - counts[2])
+        assert launched == ((4, 2, 2) if impl == "flash_pallas"
+                            else (0, 0, 0))
+        params[impl] = dict(model.named_parameters())
+    for n, p in params["flash_pallas"].items():
+        torch.testing.assert_close(p, params["flash_jnp"][n], atol=2e-4,
+                                   rtol=2e-4)
+
+
 # ---- sharded runs and campaigns on the card ---------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape,boundary", [

@@ -3,8 +3,8 @@
 Weights are the reference's own ``tree_init`` at ``reduced()`` size,
 carried across with ``params_from_jax``; tokens are numpy-seeded.  Then:
 
-  * the four dense configs' fields, reduced fields, shape support and
-    parameter counts against the reference registry;
+  * the ten LM configs' fields, reduced fields, shape support and
+    parameter counts (all and active) against the reference registry;
   * ``rms_norm``, RoPE, and the SwiGLU and GeGLU MLPs against
     ``repro.models.layers``;
   * ``prefill`` logits and cache, one ``decode_step``, and
@@ -45,6 +45,11 @@ from repro_torch.models.params import (ParamModule, init_params,
 from repro_torch.serve import serve_step as TS
 
 DENSE = ["gemma-7b", "h2o-danube-1.8b", "minicpm-2b", "qwen3-14b"]
+# the reference's ten LM configs (its eleventh, stencil-suite, is the dry
+# run's: ROADMAP Queue 1 item 16b)
+LM_ARCHS = sorted(DENSE + ["granite-moe-3b-a800m", "hubert-xlarge",
+                           "internvl2-1b", "mamba2-130m",
+                           "qwen3-moe-235b-a22b", "zamba2-2.7b"])
 PROMPT, MAX_NEW, BATCH = 128, 4, 2
 CACHE_LEN = PROMPT + MAX_NEW + 8
 F32 = 2e-5
@@ -56,9 +61,10 @@ def _dtype_name(d):
 
 
 # ============================================================== configs ==
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_config_matches_reference_registry(name):
-    assert TC.list_archs() == DENSE
+    assert TC.list_archs() == LM_ARCHS
+    assert [a for a in RC.list_archs() if a != "stencil-suite"] == LM_ARCHS
     for r, t in ((RC.get_config(name), TC.get_config(name)),
                  (RC.get_config(name).reduced(),
                   TC.get_config(name).reduced())):
@@ -73,6 +79,7 @@ def test_config_matches_reference_registry(name):
         for shape in TC.SHAPES:
             assert t.supports(shape) == r.supports(shape)
         assert t.n_params() == r.n_params()
+        assert t.n_active_params() == r.n_active_params()
     assert TC.SHAPES == RC.SHAPES
 
 
@@ -278,10 +285,19 @@ def test_prefill_matches_forward_and_cache_defs(impl):
 
 
 def test_other_families_refused():
-    cfg = dataclasses.replace(TC.get_config("h2o-danube-1.8b").reduced(),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        TT.param_defs(cfg)
+    """Every LM family is ported; the stencil family (the reference's
+    stencil-suite, the dry run's arch) and an unknown one raise, as the
+    reference's ``block_defs`` does, and the stencil-suite config is
+    refused, naming the dry run's item."""
+    for family in ("stencil", "rnn"):
+        cfg = dataclasses.replace(TC.get_config("h2o-danube-1.8b").reduced(),
+                                  family=family)
+        with pytest.raises(ValueError, match=family):
+            TT.param_defs(cfg)
+        with pytest.raises(ValueError, match=family):
+            TT.forward_hidden(cfg, None, {})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
+        TC.get_config("stencil-suite")
 
 
 def test_launch_serve_runs_on_cpu():

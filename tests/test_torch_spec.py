@@ -253,6 +253,7 @@ def test_import_gate():
         import repro_torch.kernels.tap_header
         import repro_torch.models.params, repro_torch.models.layers
         import repro_torch.models.attention, repro_torch.models.transformer
+        import repro_torch.models.ssm, repro_torch.models.moe
         import repro_torch.serve.serve_step, repro_torch.launch.serve
         import repro_torch.train.optimizer, repro_torch.train.data
         import repro_torch.train.train_step, repro_torch.train.checkpoint
