@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py lm   # phases alone: 2d 3d sharded campaign
-                               # serve tune systems lm train families
+                               # serve tune systems lm train families mesh
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
@@ -102,6 +102,19 @@ in its own counted run:
   internvl2 at depth 2 in f32 (1 × 1024 positions, one microbatch,
   remat) launches the forward kernel twice and each backward kernel
   once per attention call.
+* mesh (``flash_attention``, ``flash_attention_bwd``): LM-side
+  parallelism on a (2, 2) ``(data, model)`` mesh of ``cuda:0`` × 4
+  (``models/parallel.py``; collectives are on-card copies):
+  ``launch.serve.run(n_data=2, n_model=2)`` serves h2o-danube-1.8b at
+  its published widths (4 × 8192, 32 tokens; 96 flash launches a
+  prefill, one per layer per shard, at 2 rows and 16 of 32 heads) and
+  mamba2-130m (12 of 24 SSM heads a shard); ``launch.train.train``
+  takes two steps of h2o-danube-1.8b at 4 × 8192 (2 microbatches, each
+  1 + 1 rows over ``data``; ZeRO moments); ``transformer.prefill`` of
+  granite-moe-3b-a800m runs expert-parallel (24 of 48 padded experts a
+  model shard, gathered over ``data``).  Every flash launch and every
+  collective (``psum``, ``pmean``, ``all_gather``, by axis) is held to
+  its prediction.
 
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
@@ -127,7 +140,15 @@ so each family's at 1 × 4096 positions; the
 whole training path in f32 at full width and depth 2, kernels against the
 chunked path (loss < 1e-4, each gradient leaf within 1e-4 of its largest
 |value|, parameters after one AdamW step < 2e-4), and so each family's
-step; the flash forward and
+step; on the (2, 2) mesh in f32 at depth 2, h2o-danube's prefill,
+decode step and train step and mamba2's prefill and decode step against
+the unsharded ones on the card (the same limits; besides, the AdamW
+step's update within 0.25·lr of the unsharded one, and every ZeRO slice
+of each leaf the unsharded step moves densely moved by a median above
+lr/2), and ``apply_moe_ep``
+at granite's widths against each data shard's dense dispatch at the
+same capacity (< 1e-4, with drops; the aux loss the shards' mean, within
+5 % of the global one); the flash forward and
 backward kernels against their plain versions at the full-width layer shapes
 (f32 out < 2e-5 and lse < 1e-4; bf16 out within 1e-4 + 2^-6·|want| per
 element, two units in the last place, with a control that the limit
@@ -143,7 +164,12 @@ instantiations (hubert's 4 × 4096 16/16 hd 80 bidirectional; zamba2's
 32/32 hd 80, granite's 24/8 hd 64 and internvl2's 14/2 hd 64 at 4 ×
 8192; qwen3-moe's 1 × 4096 64/4 hd 128; the bf16 control drops one key
 from every row: the diagonal key of a causal row, the last key
-otherwise).  Timings use CUDA events (warm-up, then the median): each
+otherwise), and at each per-shard shape of the mesh phase (h2o-danube's
+16/4 hd 80 at 2 × 8192 and 1 × 8192, window 4096; granite's 12/4 hd 64
+at 2 × 8192); and the backward kernels at the mesh train step's
+per-shard shape (h2o-danube's 1 × 8192 16/4 hd 80, window 4096; f32
+< 1e-4, bf16 within two ulps, with the window − 1 control).  Timings
+use CUDA events (warm-up, then the median): each
 kernel's ms, its plain version's,
 and a one-call yardstick the port never calls, ``library_ms``: ``t``
 chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
@@ -362,7 +388,7 @@ def main() -> int:
                 "stack frame")
 
     every = ["2d", "3d", "sharded", "campaign", "serve", "tune", "systems",
-             "lm", "train", "families"]
+             "lm", "train", "families", "mesh"]
     phases = sys.argv[1:] or every
     check(set(phases) <= set(every), f"unknown phases {phases}; pass any "
           f"of {' '.join(every)}, or none for all")
@@ -372,7 +398,8 @@ def main() -> int:
            "serve": lambda: serve(dev), "tune": lambda: tune(dev),
            "systems": lambda: systems(dev),
            "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev),
-           "families": lambda: families(dev, entries)}
+           "families": lambda: families(dev, entries),
+           "mesh": lambda: mesh(dev, entries)}
     for phase in every:
         if phase not in phases:
             continue
@@ -549,6 +576,55 @@ def held_bf16(got, want, what):
     print(f"[check] {what}: max|err| {err:.3e}, at most {share:.4f} of the "
           f"limit {BF16_ATOL:g} + {BF16_RTOL:g}|want|", flush=True)
     return err, share
+
+
+def bwd_vs_plain(args, causal, win, dtype, what):
+    """The flash backward kernels against their plain version on ``args``
+    = (q, k, v, do, out, lse): f32 within 1e-4, bf16 within the
+    two-ulp per-element limit; returns (max |err|, largest share of the
+    bf16 limit or None)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    got = fa.flash_attention_bwd(*args, causal=causal, window=win)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, window=win)
+    errs, shares = [], []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == dtype and a.shape == b.shape, f"{what} {name}")
+        if dtype == torch.float32:
+            errs.append(held(a, b, 1e-4, f"{what}: {name} vs plain"))
+        else:
+            e, sh = held_bf16(a, b, f"{what}: {name} vs plain")
+            errs.append(e)
+            shares.append(sh)
+    return max(errs), max(shares, default=None)
+
+
+def bwd_window_control(args, window, shape) -> dict:
+    """The bf16 backward limit's power: the plain gradient of the
+    ``window - 1`` attention against the ``window`` one on the same bf16
+    ``args`` must exceed the limit in each of dq, dk and dv."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = args[:4]
+    want = fa.flash_attention_bwd_plain(*args, causal=True, window=window)
+    out1, lse1 = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                              window=window - 1)
+    other = fa.flash_attention_bwd_plain(q, k, v, do, out1, lse1,
+                                         causal=True, window=window - 1)
+    control = {}
+    for name, a, b in zip(("dq", "dk", "dv"), other, want):
+        gap = (a.double() - b.double()).abs()
+        control[name] = dict(max_abs_err=float(gap.max()), share=float(
+            (gap / (BF16_ATOL + BF16_RTOL * b.double().abs())).max()))
+    print(f"[check] bf16 backward limit control, {shape}, window "
+          f"{window - 1} against {window}: {json.dumps(control)} (each "
+          f"share must exceed 1)", flush=True)
+    check(all(c["share"] > 1.0 for c in control.values()),
+          f"the bf16 limit passes the window - 1 gradient at {shape}")
+    return control
 
 
 def two_d(dev) -> dict:
@@ -2211,28 +2287,13 @@ def lm_train(dev) -> dict:
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=win)
         return q, k, v, do, out, lse
 
-    def vs_plain(args, causal, win, dtype, what):
-        got = fa.flash_attention_bwd(*args, causal=causal, window=win)
-        torch.cuda.synchronize()
-        want = fa.flash_attention_bwd_plain(*args, causal=causal, window=win)
-        errs, shares = [], []
-        for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            check(a.dtype == dtype and a.shape == b.shape, f"{what} {name}")
-            if dtype == torch.float32:
-                errs.append(held(a, b, 1e-4, f"{what}: {name} vs plain"))
-            else:
-                e, sh = held_bf16(a, b, f"{what}: {name} vs plain")
-                errs.append(e)
-                shares.append(sh)
-        return max(errs), max(shares, default=None)
-
     shape = f"B1 S{TRAIN_SEQ} H{h} KV{kv} hd{hd} window {window}"
     errs, shares = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         args = inputs(1, TRAIN_SEQ, h, kv, hd, dtype, True, window)
-        errs[name], shares[name] = vs_plain(args, True, window, dtype,
-                                            f"flash bwd {name} {shape}")
+        errs[name], shares[name] = bwd_vs_plain(
+            args, True, window, dtype, f"flash bwd {name} {shape}")
         if dtype == torch.bfloat16:
             first = fa.flash_attention_bwd(*args, causal=True, window=window)
             again = fa.flash_attention_bwd(*args, causal=True, window=window)
@@ -2245,23 +2306,8 @@ def lm_train(dev) -> dict:
         del args
     # the bf16 limit's power: the gradient of the window - 1 attention
     args = inputs(1, TRAIN_SEQ, h, kv, hd, torch.bfloat16, True, window)
-    want = fa.flash_attention_bwd_plain(*args, causal=True, window=window)
-    q, k, v, do, _, _ = args
-    out1, lse1 = fa.flash_attention_fwd_plain(q, k, v, causal=True,
-                                              window=window - 1)
-    other = fa.flash_attention_bwd_plain(q, k, v, do, out1, lse1,
-                                         causal=True, window=window - 1)
-    control = {}
-    for name, a, b in zip(("dq", "dk", "dv"), other, want):
-        gap = (a.double() - b.double()).abs()
-        control[name] = dict(max_abs_err=float(gap.max()), share=float(
-            (gap / (BF16_ATOL + BF16_RTOL * b.double().abs())).max()))
-    print(f"[check] bf16 backward limit control, window {window - 1} against "
-          f"{window}: {json.dumps(control)} (each share must exceed 1)",
-          flush=True)
-    check(all(c["share"] > 1.0 for c in control.values()),
-          "the bf16 limit passes the window - 1 gradient")
-    del args, want, other, q, k, v, do, out1, lse1
+    control = bwd_window_control(args, window, shape)
+    del args
     for b, s, hh, kk, d, causal, win in [(2, 200, 4, 4, 64, True, None),
                                         (2, 200, 8, 2, 128, False, None),
                                         (1, 256, 8, 1, 256, True, 100),
@@ -2270,10 +2316,10 @@ def lm_train(dev) -> dict:
                                         (2, 230, 4, 2, 80, True, 64),
                                         (1, 190, 8, 2, 256, False, None)]:
         for dtype in (torch.float32, torch.bfloat16):
-            vs_plain(inputs(b, s, hh, kk, d, dtype, causal, win), causal, win,
-                     dtype, f"flash bwd {str(dtype).removeprefix('torch.')} "
-                     f"B{b} S{s} H{hh} KV{kk} hd{d} causal={causal} "
-                     f"window={win}")
+            bwd_vs_plain(inputs(b, s, hh, kk, d, dtype, causal, win), causal,
+                         win, dtype, f"flash bwd "
+                         f"{str(dtype).removeprefix('torch.')} B{b} S{s} "
+                         f"H{hh} KV{kk} hd{d} causal={causal} window={win}")
 
     # ---- timing at the training layer shape, bf16, uncounted ------------
     q, k, v, do, out, lse = inputs(1, TRAIN_SEQ, h, kv, hd, torch.bfloat16,
@@ -2296,9 +2342,9 @@ def lm_train(dev) -> dict:
     bf16_route = fa._BWD_ROUTES[torch.bfloat16]
     fa._BWD_ROUTES[torch.bfloat16] = fa._BWD_ROUTES[torch.float32]
     try:
-        _, prev_share = vs_plain((q, k, v, do, out, lse), True, window,
-                                 torch.bfloat16,
-                                 f"flash bwd bfloat16 {shape} (FMA kernels)")
+        _, prev_share = bwd_vs_plain(
+            (q, k, v, do, out, lse), True, window, torch.bfloat16,
+            f"flash bwd bfloat16 {shape} (FMA kernels)")
         prev_ms = median_ms(lambda: fa.flash_attention_bwd(
             q, k, v, do, out, lse, causal=True, window=window), 5, 1)
         prev_dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(
@@ -2777,6 +2823,619 @@ def families(dev, entries) -> None:
     for e in entries:
         if e["name"] in counts:
             e["launches_families"] = counts[e["name"]]
+
+
+# the mesh phase: a (2, 2) (data, model) mesh of cuda:0 × 4 (the shards
+# share the card; collectives are on-device copies)
+MESH_SHAPE = (2, 2)
+MESH_REPEATS = 1
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = 2, 4     # 2 microbatches of 2 × 8192
+MOE_ARCH, SSM_ARCH = "granite-moe-3b-a800m", "mamba2-130m"
+MESH_CHECK_BATCH, MESH_CHECK_SEQ = 4, 1024    # the f32 depth-2 checks
+# apply_moe_ep at granite's widths, f32: capacity factor 1.0 drops slots,
+# and 2 × 640 tokens a data shard give a capacity of 1280·8/40 = 256,
+# where the dense dispatch's rounding to 256 leaves it as it is
+MOE_CHECK_SEQ, MOE_CHECK_CF = 640, 1.0
+MOE_EP_TOL = 1e-4                             # f32, EP vs its oracle
+# f32, one AdamW step's update on the mesh against the unsharded one, a
+# share of the learning rate: Adam's first step moves an element by about
+# lr, so a slice the mesh left in place misses by about 4x this limit
+MESH_STEP_DELTA_TOL = 0.25
+
+
+def lm_mesh(devs):
+    """The (2, 2) ``(data, model)`` mesh of ``devs``."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(*MESH_SHAPE, devices=devs)
+
+
+def mesh_layout(cfg, devs) -> tuple:
+    """``(flat defs, shardings)`` of ``cfg`` as the mesh executor places
+    it on the (2, 2) mesh of ``devs`` (nothing allocated)."""
+    from repro_torch.models.parallel import mesh_defs
+    from repro_torch.models.params import NamedSharding, flat_defs
+
+    m = lm_mesh(devs)
+    flat = flat_defs(mesh_defs(cfg.with_mesh(m), m))
+    return flat, {n: NamedSharding(m, d.pspec) for n, d in flat.items()}
+
+
+def mesh_prefill_collectives(cfg, devs) -> dict:
+    """The collectives one prefill of ``cfg`` takes on ``mm``'s mesh:
+    per layer a ``psum`` over ``model`` after each row-parallel product
+    (attention's ``wo`` and the MLP's ``w_down``; the MoE's output; the
+    SSM's gated-norm sums of squares and ``out_proj``), the embedding's
+    ``all_gather`` and the logits' ``psum``; the MoE's ZeRO-3
+    ``all_gather``s of its three expert weights over ``data`` and the
+    ``pmean`` of its aux loss."""
+    flat, shardings = mesh_layout(cfg, devs)
+    split = {n: flat[n].shape != shardings[n].local_shape(flat[n].shape)
+             for n in flat}
+    L = cfg.n_layers
+    psum = 0
+    if cfg.family == "ssm":
+        psum += 2 * L * split["blocks.0.ssm.wz"]
+    else:
+        psum += L * split["blocks.0.attn.wo"]
+    if cfg.family == "dense":
+        psum += L * split["blocks.0.mlp.w_down"]
+    out = {}
+    if cfg.family == "moe":
+        psum += L
+        out["pmean"] = {"data": L}
+        out["all_gather"] = {"data": 3 * L}
+    table = "head" if "head" in flat else "embed.table"
+    psum += split[table]
+    out["psum"] = {"model": psum}
+    if split["embed.table"]:
+        out.setdefault("all_gather", {})["model"] = 1
+    return out
+
+
+def mesh_step_collectives(cfg, devs, seq) -> dict:
+    """The collectives one train step of ``cfg`` (dense) takes on
+    ``mm``'s mesh.  Each microbatch's forward: the prefill's per-layer
+    ``psum``s and the embedding's ``all_gather``, one ``psum`` over
+    ``model`` per loss chunk (the split head's logits) and one over
+    ``data`` (the sums and counts).  Its backward recomputes each loss
+    chunk and, under remat, each layer up to its last saved tensor: the
+    attention's ``psum`` (the MLP's last one has nothing after it to
+    recompute).  Then a ``psum`` of each leaf over the axes it is
+    replicated on, the global norm's over the whole mesh, and one
+    ``all_gather`` over ``data`` per leaf whose moments split a free
+    dim."""
+    from repro_torch.models.params import NamedSharding
+    from repro_torch.train.optimizer import zero_pspec
+
+    n_micro = cfg.microbatches
+    chunks = -(-seq // min(cfg.loss_chunk, seq))
+    fwd = mesh_prefill_collectives(cfg, devs)["psum"]["model"] - 1 + chunks
+    bwd = cfg.n_layers * cfg.remat + chunks
+    flat, shardings = mesh_layout(cfg, devs)
+    m = lm_mesh(devs)
+    rep = {"data": 0, "data+model": 0}
+    zero = 0
+    for n, d in flat.items():
+        rep["+".join(shardings[n].replica_axes(d.shape))] += 1
+        moments = NamedSharding(m, zero_pspec(d, data_size=MESH_SHAPE[0]))
+        zero += (moments.local_shape(d.shape)
+                 != shardings[n].local_shape(d.shape))
+    return {"psum": {"model": n_micro * (fwd + bwd),
+                     "data": n_micro + rep["data"],
+                     "data+model": rep["data+model"] + 1},
+            "all_gather": {"model": n_micro, "data": zero}}
+
+
+def mesh(dev, entries) -> None:
+    """LM-side parallelism on a (2, 2) ``(data, model)`` mesh of
+    ``cuda:0`` × 4, counted: ``launch.serve.run(n_data=2, n_model=2)``
+    serves h2o-danube-1.8b at its published widths and depth (bf16, 4
+    prompts of 8192 tokens, 32 greedy tokens; the flash forward once per
+    layer per shard, 96 a prefill, at 2 rows and 16 of 32 heads), and
+    ``launch.train.train`` takes two steps of 4 × 8192 tokens
+    (``microbatches=2``, remat; each microbatch 1 + 1 rows over
+    ``data``); ``transformer.prefill`` of granite-moe-3b-a800m (expert
+    parallel: 24 of 48 padded experts a model shard, ZeRO-3 gathered
+    over ``data``; 4 × 8192) and ``launch.serve.run`` of mamba2-130m
+    (12 of 24 SSM heads a shard; 4 × 8192, 32 tokens).  Every launch and
+    collective count is held to its prediction.  Then, uncounted, in f32
+    at depth 2 on the card: h2o's sharded prefill and train step against
+    the unsharded ones (logits < 1e-4; loss < 1e-4; each gradient leaf
+    within 1e-4 of its largest |value|; parameters after one AdamW step
+    < 2e-4, the update within 0.25·lr, each ZeRO slice of a densely
+    updated leaf moved by a median above lr/2), ``apply_moe_ep`` at
+    granite's widths against its oracle (each data shard's dense
+    dispatch at the same capacity), mamba2's sharded prefill and decode
+    against the unsharded ones; the flash forward at each per-shard shape
+    against its plain version, and the backward kernels at the train
+    step's per-shard shape (with the window − 1 control).  The
+    launch counts join the flash entries in ``entries`` as
+    ``launches_mesh``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as C
+    from repro_torch.core import distributed as D
+    from repro_torch.core.device import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as trainer
+    from repro_torch.launch.mesh import ensure_fake_devices
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+    from repro_torch.models.parallel import MeshModel, replica_grads
+    from repro_torch.models.params import (NamedSharding, ParamModule,
+                                           init_params)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_fn, make_train_step
+
+    smi = smi_line()
+    devs = ensure_fake_devices(math.prod(MESH_SHAPE), dev)
+    n_shards = len(devs)
+    counts = {"flash_attention": {}, "flash_attention_bwd": {}}
+    rows = {}
+
+    def no_other_kernel(what):
+        check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
+              == 0, f"{what} launched a stencil kernel")
+
+    def unsharded(entry_name, key):
+        for e in entries:
+            if e["name"] == entry_name and key in e:
+                return e[key]
+        return "not run (its phase was not selected)"
+
+    # ---- h2o-danube-1.8b served on the mesh, bf16, counted --------------
+    cfg = C.get_config(LM_ARCH)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve.run(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                    max_new=LM_NEW, reduced=False, seed=0,
+                    repeats=MESH_REPEATS, device=dev, n_data=MESH_SHAPE[0],
+                    n_model=MESH_SHAPE[1], attention_impl="flash_pallas")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = fa.flash_attention_fwd.launches
+    want = cfg.n_layers * n_shards
+    want_coll = mesh_prefill_collectives(cfg, devs)
+    print(f"[main path mesh] {LM_ARCH} (2, 2): flash_attention launches "
+          f"{launches} ({res.kernel_launches_per_prefill} per prefill, "
+          f"{1 + MESH_REPEATS} prefills); collectives per prefill "
+          f"{json.dumps(res.collectives_per_prefill)}", flush=True)
+    no_other_kernel(LM_ARCH)
+    check(fa.flash_attention_bwd_dq.launches == 0
+          and fa.flash_attention_bwd_dkdv.launches == 0,
+          "mesh serving launched a backward kernel")
+    check(res.kernel_launches_per_prefill == want, f"{LM_ARCH} mesh: "
+          f"{res.kernel_launches_per_prefill} flash launches a prefill, not "
+          f"{want} (layers × shards)")
+    check(launches == want * (1 + MESH_REPEATS), f"{LM_ARCH} mesh: "
+          f"{launches} flash launches, not {want * (1 + MESH_REPEATS)}")
+    check(res.collectives_per_prefill == want_coll, f"{LM_ARCH} mesh: "
+          f"collectives {res.collectives_per_prefill}, not {want_coll}")
+    check(tuple(res.tokens.shape) == (LM_BATCH, LM_NEW)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab, "mesh tokens")
+    counts["flash_attention"][LM_ARCH + " serve"] = launches
+    lm = unsharded("flash_attention", "lm")
+    rows["serve"] = dict(
+        arch=LM_ARCH, mesh=list(MESH_SHAPE), batch=LM_BATCH,
+        prompt=LM_PROMPT, new_tokens=LM_NEW, dtype="bfloat16",
+        prefill_ms=res.prefill_ms,
+        prefill_tok_per_s=LM_BATCH * LM_PROMPT / (res.prefill_ms * 1e-3),
+        decode_ms_per_step=res.decode_ms / res.decode_steps,
+        decode_tok_per_s=res.decode_tok_per_s,
+        launches_per_prefill=res.kernel_launches_per_prefill,
+        collectives_per_prefill=res.collectives_per_prefill,
+        peak_gb=res.peak_bytes / 1e9, host_s_with_init=host_s,
+        unsharded=(lm if isinstance(lm, str) else {
+            k: lm[k] for k in ("prefill_ms", "decode_ms_per_step",
+                               "peak_gb")}), card=smi)
+    print("[mesh serve] " + json.dumps(rows["serve"]), flush=True)
+    del res
+    torch.cuda.empty_cache()
+    # where a mesh prefill's and decode step's time goes (profiled)
+    pcfg = dataclasses.replace(cfg, attention_impl="flash_pallas")
+    mesh_ = lm_mesh(devs)
+    pcfg = pcfg.with_mesh(mesh_)
+    mm = MeshModel(pcfg, mesh_, init_params(
+        transformer.build_model(pcfg, dev),
+        torch.Generator(dev).manual_seed(0)))
+    prompt = family_batch(pcfg, LM_BATCH, LM_PROMPT,
+                          torch.Generator(dev).manual_seed(1), dev)
+    logits, cache = transformer.prefill(pcfg, mm, prompt, LM_PROMPT + 8)
+    prof = {"prefill": profiled(lambda: transformer.prefill(
+        pcfg, mm, prompt, LM_PROMPT + 8))}
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    transformer.decode_step(pcfg, mm, cache, tok, LM_PROMPT)   # warm-up
+    prof["decode_step"] = profiled(lambda: transformer.decode_step(
+        pcfg, mm, cache, tok, LM_PROMPT + 1))
+    print(f"[mesh profile] {LM_ARCH} (2, 2) B{LM_BATCH} S{LM_PROMPT}: "
+          f"{json.dumps(dict(prof, card=smi))}", flush=True)
+    del mm, prompt, logits, cache
+    torch.cuda.empty_cache()
+
+    # ---- one train step on the mesh, bf16, counted -----------------------
+    n_micro = cfg.microbatches
+    zero_counts()
+    D.reset_collectives()
+    t0 = time.perf_counter()
+    mm, state, losses = trainer.train(
+        LM_ARCH, steps=MESH_TRAIN_STEPS, batch=MESH_TRAIN_BATCH,
+        seq=TRAIN_SEQ, reduced=False, device=dev, n_data=MESH_SHAPE[0],
+        n_model=MESH_SHAPE[1], attention_impl="flash_pallas", log_every=1)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    stats = trainer.train.last_stats
+    coll = D.collective_counts()
+    fwd = fa.flash_attention_fwd.launches
+    dq_n = fa.flash_attention_bwd_dq.launches
+    dkdv_n = fa.flash_attention_bwd_dkdv.launches
+    per = cfg.n_layers * n_micro * MESH_TRAIN_STEPS * n_shards
+    one = mesh_step_collectives(cfg, devs, TRAIN_SEQ)
+    want_coll = {k: {a: n * MESH_TRAIN_STEPS for a, n in v.items()}
+                 for k, v in one.items()}
+    print(f"[main path mesh] {LM_ARCH} train (2, 2): flash launches forward "
+          f"{fwd}, dQ {dq_n}, dK/dV {dkdv_n}; collectives "
+          f"{json.dumps(coll)}", flush=True)
+    no_other_kernel(LM_ARCH + " train")
+    check(fwd == 2 * per and dq_n == per and dkdv_n == per,
+          f"mesh train launched ({fwd}, {dq_n}, {dkdv_n}), not "
+          f"({2 * per}, {per}, {per}) (layers × microbatches × steps × "
+          "shards, the forward twice for remat)")
+    check(coll == want_coll, f"mesh train collectives {coll}, not "
+          f"{want_coll}")
+    check(len(losses) == MESH_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + stats.grad_norms),
+        f"mesh train losses {losses}, grad norms {stats.grad_norms}")
+    counts["flash_attention"][LM_ARCH + " train"] = fwd
+    counts["flash_attention_bwd"][LM_ARCH + " train"] = dkdv_n
+    tr = unsharded("flash_attention_bwd", "train")
+    rows["train"] = dict(
+        arch=LM_ARCH, mesh=list(MESH_SHAPE), steps=MESH_TRAIN_STEPS,
+        batch=MESH_TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=n_micro,
+        remat=cfg.remat, dtype="bfloat16", losses=losses,
+        grad_norms=stats.grad_norms, step_ms=stats.step_ms,
+        timed_steps=stats.timed_steps, tokens_per_s=stats.tokens_per_s,
+        peak_gb=stats.peak_bytes / 1e9, host_s_with_init=host_s,
+        launches_fwd=fwd, launches_dq=dq_n, launches_dkdv=dkdv_n,
+        collectives_per_step=one,
+        unsharded=(tr if isinstance(tr, str) else {
+            k: tr[k] for k in ("batch", "step_ms", "tokens_per_s",
+                               "peak_gb")}), card=smi)
+    print("[mesh train] " + json.dumps(rows["train"]), flush=True)
+    del mm, state
+    torch.cuda.empty_cache()
+
+    # ---- granite-moe-3b-a800m: one expert-parallel prefill, counted ------
+    mcfg = dataclasses.replace(C.get_config(MOE_ARCH),
+                               attention_impl="flash_pallas")
+    mesh_ = lm_mesh(devs)
+    mcfg = mcfg.with_mesh(mesh_)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mm = MeshModel(mcfg, mesh_, init_params(
+        transformer.build_model(mcfg, dev),
+        torch.Generator(dev).manual_seed(0)))
+    e_loc = mm.flat["blocks.0.moe.w_up"].shape[0] // MESH_SHAPE[1]
+    check(mm.leaves()["blocks.0.moe.w_up"].flat[0].shape[0] == e_loc
+          == mcfg.n_experts_padded // MESH_SHAPE[1],
+          f"{MOE_ARCH}: {e_loc} experts a model shard")
+    prompt = family_batch(mcfg, LM_BATCH, LM_PROMPT,
+                          torch.Generator(dev).manual_seed(1), dev)
+    transformer.prefill(mcfg, mm, prompt, LM_PROMPT + 8)     # warm-up
+    zero_counts()
+    D.reset_collectives()
+    with Timer(dev) as t:
+        logits, _ = transformer.prefill(mcfg, mm, prompt, LM_PROMPT + 8)
+    coll = D.collective_counts()
+    launches = fa.flash_attention_fwd.launches
+    want = mcfg.n_layers * n_shards
+    want_coll = mesh_prefill_collectives(mcfg, devs)
+    print(f"[main path mesh] {MOE_ARCH} (2, 2): flash_attention launches "
+          f"{launches}; collectives {json.dumps(coll)}", flush=True)
+    no_other_kernel(MOE_ARCH)
+    check(launches == want, f"{MOE_ARCH} mesh: {launches} flash launches, "
+          f"not {want}")
+    check(coll == want_coll, f"{MOE_ARCH} mesh: collectives {coll}, not "
+          f"{want_coll}")
+    check(tuple(logits.shape) == (LM_BATCH, 1, mcfg.vocab)
+          and bool(torch.isfinite(logits).all()), f"{MOE_ARCH} logits")
+    counts["flash_attention"][MOE_ARCH + " prefill"] = launches
+    rows["moe"] = dict(arch=MOE_ARCH, mesh=list(MESH_SHAPE),
+                       experts_per_model_shard=e_loc, batch=LM_BATCH,
+                       prompt=LM_PROMPT, dtype="bfloat16", prefill_ms=t.ms,
+                       prefill_tok_per_s=LM_BATCH * LM_PROMPT
+                       / (t.ms * 1e-3), launches_per_prefill=launches,
+                       collectives_per_prefill=coll,
+                       peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                       card=smi)
+    print("[mesh moe] " + json.dumps(rows["moe"]), flush=True)
+    del mm, prompt, logits
+    torch.cuda.empty_cache()
+
+    # ---- mamba2-130m served on the mesh, counted -------------------------
+    scfg = C.get_config(SSM_ARCH)
+    zero_counts()
+    res = serve.run(SSM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                    max_new=LM_NEW, reduced=False, seed=0,
+                    repeats=MESH_REPEATS, device=dev, n_data=MESH_SHAPE[0],
+                    n_model=MESH_SHAPE[1], attention_impl="flash_pallas")
+    torch.cuda.synchronize()
+    want_coll = mesh_prefill_collectives(scfg, devs)
+    flat, shardings = mesh_layout(scfg, devs)
+    heads = shardings["blocks.0.ssm.wz"].local_shape(
+        flat["blocks.0.ssm.wz"].shape)[1] // scfg.ssm_head_dim
+    print(f"[main path mesh] {SSM_ARCH} (2, 2): {heads} SSM heads a shard; "
+          f"flash launches {fa.flash_attention_fwd.launches}; collectives "
+          f"per prefill {json.dumps(res.collectives_per_prefill)}",
+          flush=True)
+    no_other_kernel(SSM_ARCH)
+    check(fa.flash_attention_fwd.launches == 0, f"{SSM_ARCH} launched the "
+          "flash kernel")
+    check(heads * MESH_SHAPE[1] == scfg.ssm_heads, f"{SSM_ARCH}: {heads} "
+          "heads a shard")
+    check(res.collectives_per_prefill == want_coll, f"{SSM_ARCH} mesh: "
+          f"collectives {res.collectives_per_prefill}, not {want_coll}")
+    check(tuple(res.tokens.shape) == (LM_BATCH, LM_NEW)
+          and int(res.tokens.max()) < scfg.vocab, f"{SSM_ARCH} tokens")
+    counts["flash_attention"][SSM_ARCH + " serve"] = 0
+    rows["ssm"] = dict(
+        arch=SSM_ARCH, mesh=list(MESH_SHAPE), ssm_heads_per_shard=heads,
+        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+        dtype="bfloat16", prefill_ms=res.prefill_ms,
+        decode_ms_per_step=res.decode_ms / res.decode_steps,
+        collectives_per_prefill=res.collectives_per_prefill,
+        peak_gb=res.peak_bytes / 1e9, card=smi)
+    print("[mesh ssm] " + json.dumps(rows["ssm"]), flush=True)
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- f32, depth 2: sharded against unsharded, uncounted --------------
+    checks = {}
+    f32 = dict(n_layers=2, activ_dtype=torch.float32,
+               param_dtype=torch.float32, attention_impl="flash_pallas")
+    b, s = MESH_CHECK_BATCH, MESH_CHECK_SEQ
+    for arch in (LM_ARCH, SSM_ARCH):
+        c1 = dataclasses.replace(C.get_config(arch), **f32)
+        model = init_params(transformer.build_model(c1, dev),
+                            torch.Generator(dev).manual_seed(0))
+        mesh_ = lm_mesh(devs)
+        cm = c1.with_mesh(mesh_)
+        mm = MeshModel(cm, mesh_, model)
+        toks = torch.randint(0, c1.vocab, (b, s), device=dev,
+                             generator=torch.Generator(dev).manual_seed(1))
+        want_l, want_c = transformer.prefill(c1, model, {"tokens": toks},
+                                             s + 8)
+        got_l, got_c = transformer.prefill(cm, mm, {"tokens": toks}, s + 8)
+        row = {"prefill_logits": held(
+            got_l, want_l, LM_WHOLE_PATH_TOL, f"mesh {arch} f32 depth 2 "
+            f"B{b} S{s}: last-position logits, (2, 2) vs unsharded")}
+        tok = torch.argmax(want_l[:, -1], dim=-1)[:, None]
+        want_d, _ = transformer.decode_step(c1, model, want_c, tok, s)
+        got_d, _ = transformer.decode_step(cm, mm, got_c, tok, s)
+        row["decode_logits"] = held(
+            got_d, want_d, LM_WHOLE_PATH_TOL, f"mesh {arch} f32 depth 2: "
+            "decode-step logits, (2, 2) vs unsharded")
+        del want_c, got_c
+        if arch == LM_ARCH:
+            batch = {"tokens": toks, "labels": toks}
+            names, leaves = zip(*model.named_parameters())
+            loss = loss_fn(c1, model, batch)
+            want_g = dict(zip(names, torch.autograd.grad(loss, leaves)))
+            shards = mm.leaves()
+            keys = [(n, c) for n in shards for c in np.ndindex(
+                *mesh_.devices.shape)]
+            mloss = loss_fn(cm, mm, batch)
+            gs = torch.autograd.grad(mloss, [shards[n][c] for n, c in keys])
+            grads = {n: np.empty(mesh_.devices.shape, dtype=object)
+                     for n in shards}
+            for (n, c), g in zip(keys, gs):
+                grads[n][c] = g
+            grads = replica_grads(mm, grads)
+            loss_err = abs(float(mloss.detach()) - float(loss.detach()))
+            check(loss_err < TRAIN_LOSS_TOL, f"mesh {arch} loss "
+                  f"{float(mloss.detach())} vs {float(loss.detach())}")
+            share = 0.0
+            for n in names:
+                got = mm.shardings[n].gather(grads[n], mm.flat[n].shape, dev)
+                lim = TRAIN_GRAD_TOL * float(want_g[n].abs().max())
+                err = float((got.double() - want_g[n].double()).abs().max())
+                check(err <= lim, f"mesh {arch} grad {n}: {err:.3e} > "
+                      f"{lim:.3e}")
+                share = max(share, err / lim if lim else 0.0)
+            del grads, gs, want_g
+            ocfg = opt.OptConfig(lr=TRAIN_CHECK_LR, warmup=1, total_steps=1,
+                                 schedule=c1.schedule)
+            before = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            make_train_step(c1, ocfg)(model, opt.init_state(model), batch)
+            mstate = opt.init_state(mm)
+            make_train_step(cm, ocfg)(mm, mstate, batch)
+            got_p = mm.state_dict(dev)
+            perr = max(float((got_p[n] - p).abs().max())
+                       for n, p in model.named_parameters())
+            check(perr < TRAIN_PARAM_TOL, f"mesh {arch} params after one "
+                  f"AdamW step: {perr:.3e}")
+            # the step's update itself, held below the learning rate; and
+            # on every leaf the reference moves densely, each data
+            # shard's ZeRO slice moved by a median of at least lr / 2
+            lr = TRAIN_CHECK_LR
+            derr, dense = 0.0, []
+            for n, p in model.named_parameters():
+                want_d = p.detach() - before[n]
+                got_d = got_p[n] - before[n]
+                derr = max(derr, float((got_d - want_d).abs().max()))
+                if float(want_d.abs().median()) <= 0.5 * lr:
+                    continue                    # a sparse update
+                zs = mstate["m"][n].sharding
+                for c in np.ndindex(*mesh_.devices.shape):
+                    med = float(got_d[zs.index(c, got_d.shape)].abs()
+                                .median())
+                    check(med > 0.5 * lr, f"mesh {arch}: the step moved "
+                          f"{n}'s ZeRO slice at {c} by a median {med:.3e}")
+                dense.append(n)
+            check(derr < MESH_STEP_DELTA_TOL * lr, f"mesh {arch}: the "
+                  f"AdamW update differs by {derr:.3e}, lr {lr:g}")
+            check(len(dense) >= len(before) - 1, f"mesh {arch}: only "
+                  f"{len(dense)} of {len(before)} leaves moved densely")
+            row.update(loss=float(loss.detach()), loss_err=loss_err,
+                       grad_share_of_limit=share, param_err=perr,
+                       update_err=derr, dense_leaves=len(dense),
+                       microbatches=c1.microbatches)
+            print(f"[check] mesh {arch} f32 depth 2 B{b} S{s} train step "
+                  f"({c1.microbatches} microbatches): loss |err| "
+                  f"{loss_err:.3e} (< {TRAIN_LOSS_TOL:g}); gradients at "
+                  f"most {share:.4f} of their limit; parameters after the "
+                  f"step max|err| {perr:.3e} (< {TRAIN_PARAM_TOL:g}); the "
+                  f"update max|err| {derr:.3e} (< {MESH_STEP_DELTA_TOL:g}"
+                  f"·lr); {len(dense)} of {len(before)} leaves moved by a "
+                  f"median > lr/2 in every ZeRO slice", flush=True)
+            del got_p, before, mstate
+        checks[arch] = row
+        del model, mm
+        torch.cuda.empty_cache()
+
+    # ---- apply_moe_ep at granite's widths against its oracle, f32 --------
+    gc = C.get_config(MOE_ARCH)
+    defs, e_pad = moe_mod.moe_defs(gc.d_model, gc.d_ff, gc.n_experts,
+                                   act=gc.act)
+    p = init_params(ParamModule(defs, device=dev),
+                    torch.Generator(dev).manual_seed(0))
+    s = MOE_CHECK_SEQ
+    x = torch.randn((b, s, gc.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    mesh_ = lm_mesh(devs)
+    full = dict(p.named_parameters())
+    ps = np.empty(mesh_.devices.shape, dtype=object)
+    parts = {n: NamedSharding(mesh_, d.pspec).split(full[n].detach())
+             for n, d in defs.items()}
+    for c in np.ndindex(*ps.shape):
+        ps[c] = ParamModule({n: dataclasses.replace(
+            d, shape=tuple(parts[n][c].shape)) for n, d in defs.items()},
+            device=dev)
+        ps[c].load_state_dict({n: parts[n][c] for n in defs})
+    kw = dict(n_experts=gc.n_experts, n_padded=e_pad, top_k=gc.top_k,
+              act=gc.act, capacity_factor=MOE_CHECK_CF)
+    rows_d = b // MESH_SHAPE[0]
+    t_local = rows_d * s
+    cap = max(4, int(MOE_CHECK_CF * t_local * gc.top_k / gc.n_experts))
+    check(moe_mod.capacity(t_local, gc.top_k, gc.n_experts,
+                           MOE_CHECK_CF) == cap,
+          "the oracle's capacity differs from the EP capacity")
+    with torch.no_grad():
+        ys, auxs = moe_mod.apply_moe_ep(
+            NamedSharding(mesh_, ("data",)).split(x), ps, mesh_,
+            dp_axes="data", **kw)
+        ep_err, per_aux, kept = 0.0, [], 0
+        for d in range(MESH_SHAPE[0]):
+            xd = x[d * rows_d:(d + 1) * rows_d]
+            want, a = moe_mod.apply_moe(xd, p, **kw)
+            per_aux.append(float(a))
+            logits = xd.reshape(-1, gc.d_model) @ full["router"]
+            kept += int(moe_mod.route(logits, gc.n_experts, gc.top_k,
+                                      cap)[4].sum())
+            for m in range(MESH_SHAPE[1]):
+                ep_err = max(ep_err, held(
+                    ys[d, m], want, MOE_EP_TOL, f"apply_moe_ep {MOE_ARCH} "
+                    f"f32 B{b} S{s} data shard {d} model shard {m}: vs its "
+                    f"shard's dense dispatch (capacity {cap})"))
+        _, glob = moe_mod.apply_moe(x, p, **kw)
+    aux = float(auxs.flat[0])
+    aux_rel = abs(aux - float(glob)) / float(glob)
+    check(abs(aux - sum(per_aux) / len(per_aux)) < 1e-5 and aux_rel < 0.05,
+          f"apply_moe_ep aux {aux} vs the shards' mean "
+          f"{sum(per_aux) / len(per_aux)} and the global {float(glob)}")
+    slots = b * s * gc.top_k
+    check(kept < slots, "the EP check dropped no slot")
+    print(f"[check] apply_moe_ep aux {aux:.6f}: the data shards' mean, "
+          f"{aux_rel:.4f} of the global {float(glob):.6f} (< 0.05); "
+          f"{slots - kept} of {slots} slots dropped", flush=True)
+    checks["apply_moe_ep"] = dict(max_abs_err=ep_err, capacity=cap,
+                                  dropped=slots - kept, slots=slots,
+                                  aux=aux, aux_rel_to_global=aux_rel)
+    del p, ps, parts, full, x, ys
+    torch.cuda.empty_cache()
+
+    # ---- the flash forward at each per-shard shape, uncounted -----------
+    gen = torch.Generator(dev).manual_seed(2)
+    h2o = C.get_config(LM_ARCH)
+    shard_shapes = [
+        (LM_ARCH + " serve", h2o, LM_BATCH // 2, LM_PROMPT),
+        (LM_ARCH + " train", h2o, MESH_TRAIN_BATCH // n_micro // 2,
+         TRAIN_SEQ),
+        (MOE_ARCH + " prefill", C.get_config(MOE_ARCH), LM_BATCH // 2,
+         LM_PROMPT)]
+    shapes = {}
+    for what, c1, bb, ss in shard_shapes:
+        h, kv, hd = (c1.n_heads // MESH_SHAPE[1], c1.kv_heads
+                     // MESH_SHAPE[1], c1.head_dim)
+        window = c1.swa_window
+        shape = f"B{bb} S{ss} H{h} KV{kv} hd{hd} window {window} ({what})"
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(sh, generator=gen, device=dev).to(dtype)
+                       for sh in ((bb, ss, h, hd), (bb, ss, kv, hd),
+                                  (bb, ss, kv, hd)))
+            out, lse = fa.flash_attention_fwd(q, k, v, window=window)
+            torch.cuda.synchronize()
+            want, want_lse = fa.flash_attention_fwd_plain(q, k, v,
+                                                          window=window)
+            name = str(dtype).removeprefix("torch.")
+            what_ = f"flash {name} per-shard {shape}"
+            if dtype == torch.float32:
+                row["max_abs_err_f32"] = held(out, want, 2e-5,
+                                              what_ + ": out vs plain")
+            else:
+                row["max_abs_err_bf16"], row["bf16_share_of_limit"] = \
+                    held_bf16(out, want, what_ + ": out vs plain")
+                # the limit's power: each row's keys shifted by one (its
+                # diagonal key dropped; under a window one older key let
+                # in), on the rows that keep at least S/2 keys
+                fewer = attn.flash_attention(q, k, v, causal=True,
+                                             window=window, q_offset=-1)
+                sl = slice(ss // 2, None)
+                gap = (fewer[:, sl].double() - want[:, sl].double()).abs()
+                share = float((gap / (BF16_ATOL + BF16_RTOL * want[
+                    :, sl].double().abs())).max())
+                print(f"[check] bf16 limit control, {shape}: keys shifted "
+                      f"by one a row is {share:.2f} of the limit on rows "
+                      f"{ss // 2}.. (must exceed 1)", flush=True)
+                check(share > 1.0, f"the bf16 limit passes keys shifted "
+                      f"by one a row at {shape}")
+                row["bf16_control_share"] = share
+                del fewer, gap
+            row[f"max_abs_err_lse_{name}"] = held(
+                lse, want_lse, 1e-4, what_ + ": lse vs plain")
+            del want, want_lse
+            if what.endswith(" train"):
+                # the backward kernels the sharded step launched, at its
+                # per-shard shape (the window - 1 gradient as control)
+                do = torch.randn((bb, ss, h, hd), generator=gen,
+                                 device=dev).to(dtype)
+                args = (q, k, v, do, out, lse)
+                err, sh = bwd_vs_plain(args, True, window, dtype, f"flash "
+                                       f"bwd {name} per-shard {shape}")
+                row[f"bwd_max_abs_err_{name}"] = err
+                if dtype == torch.bfloat16:
+                    row["bwd_bf16_share_of_limit"] = sh
+                    row["bwd_bf16_control"] = bwd_window_control(
+                        args, window, f"per-shard {shape}")
+                del do, args
+            del q, k, v, out, lse
+        shapes[what] = row
+    torch.cuda.empty_cache()
+    print("[mesh] " + json.dumps(dict(runs=rows, checks=checks,
+                                      shard_shapes=shapes, launches=counts,
+                                      card=smi)), flush=True)
+    for e in entries:
+        if e["name"] in counts:
+            e["launches_mesh"] = counts[e["name"]]
 
 
 if __name__ == "__main__":

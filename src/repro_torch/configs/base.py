@@ -2,14 +2,17 @@
 
 The port keeps its own copy because the reference's ``configs/base.py``
 imports jax.  Field names and defaults are the reference's; dtypes are
-``torch`` dtypes.  The sharding helpers (``with_mesh``, ``input_specs``,
-``input_pspecs``) are not ported: LM sharding is ROADMAP Queue 1 item 8b.
-The mesh hint fields stay, as data, so a config means the same in both
-packages.
+``torch`` dtypes.  The sharding helpers are the reference's:
+``with_mesh`` fills the mesh hints (``dp_axes``, ``mesh_dp``,
+``mesh_model``) from a :class:`~repro_torch.launch.mesh.Mesh`,
+``input_specs`` gives each input of a shape cell as a ``(shape, dtype)``
+pair and ``input_pspecs`` its spec (a tuple, the reference's
+``PartitionSpec`` as data).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -89,7 +92,7 @@ class ArchConfig:
     microbatches: int = 1
     schedule: str = "cosine"         # cosine | wsd (minicpm)
     sharding: str = "tp"
-    # mesh hints (kept as data; the port runs on one device for now)
+    # mesh hints, set by with_mesh
     dp_axes: Any = ("data",)
     mesh_dp: int = 1
     mesh_model: int = 1
@@ -132,6 +135,53 @@ class ArchConfig:
             if not subq:
                 return False, "pure full-attention: long_500k skipped"
         return True, ""
+
+    def with_mesh(self, mesh) -> "ArchConfig":
+        axes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        if self.sharding == "fsdp":
+            dp = tuple(a for a in ("pod", "data", "model") if a in axes)
+            return dataclasses.replace(
+                self, dp_axes=dp, microbatches=1,
+                mesh_dp=math.prod(axes.values()), mesh_model=1)
+        dp = tuple(a for a in ("pod", "data") if a in axes)
+        return dataclasses.replace(
+            self, dp_axes=dp if len(dp) > 1 else (dp[0] if dp else None),
+            mesh_dp=math.prod(v for k, v in axes.items()
+                              if k in ("pod", "data")),
+            mesh_model=axes.get("model", 1))
+
+    def input_specs(self, shape_name: str) -> dict:
+        """``(shape, dtype)`` of every model input of this cell."""
+        info = SHAPES[shape_name]
+        s, b, kind = info["seq"], info["batch"], info["kind"]
+        i32 = torch.int32
+        patches = ((b, self.vlm_patches, self.vlm_patch_dim),
+                   self.activ_dtype)
+        st = s - self.vlm_patches
+        if kind == "train":
+            if self.family == "encoder":
+                return {"frames": ((b, s, self.d_model), self.activ_dtype),
+                        "mask": ((b, s), torch.bool),
+                        "labels": ((b, s), i32)}
+            if self.family == "vlm":
+                return {"tokens": ((b, st), i32), "patches": patches,
+                        "labels": ((b, st), i32)}
+            return {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+        if kind == "prefill":
+            if self.family == "encoder":
+                return {"frames": ((b, s, self.d_model), self.activ_dtype)}
+            if self.family == "vlm":
+                return {"tokens": ((b, st), i32), "patches": patches}
+            return {"tokens": ((b, s), i32)}
+        # decode: one new token against a seq-long cache
+        return {"tokens": ((b, 1), i32)}
+
+    def input_pspecs(self, shape_name: str) -> dict:
+        b = SHAPES[shape_name]["batch"]
+        bs = (self.dp_axes if (self.mesh_dp > 1 and b % self.mesh_dp == 0)
+              else None)
+        return {k: (bs,) + (None,) * (len(shape) - 1)
+                for k, (shape, _) in self.input_specs(shape_name).items()}
 
     def reduced(self) -> "ArchConfig":
         """CPU-sized config of the same family for smoke tests."""

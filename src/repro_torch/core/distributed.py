@@ -33,6 +33,17 @@ box-stencil corners arrive via two hops.
 Per-shard compute is plain torch (``kernels/ref.stencil_step``) with
 *global-coordinate* masking, which keeps zero-Dirichlet semantics exact
 at the true domain edges while interior seams are healed by the halo.
+
+The LM half's parallelism (``models/parallel.py``) uses the reductions
+beside ``ppermute``: :func:`psum`, :func:`pmean`, :func:`pmax` and
+:func:`all_gather` over a mesh axis or a tuple of axes.  Each takes a
+mesh-shaped object array of shards and returns a new one: the members
+of each group (the positions that differ only along the axis) are
+copied to the device of the group's first member, combined there in
+mesh-index order (so the result does not depend on timing), and the
+result is copied back to every member, out of place, so autograd
+differentiates through it.  Each counts its calls, in ``.calls`` and by
+axis in ``.by_axis``.
 """
 from __future__ import annotations
 
@@ -82,6 +93,104 @@ def _shard_map(fn, shards: np.ndarray) -> np.ndarray:
     for c in np.ndindex(*shards.shape):
         out[c] = fn(c, shards[c])
     return out
+
+
+def smap(fn, *arrays: np.ndarray) -> np.ndarray:
+    """``fn`` applied position by position to mesh-shaped object arrays:
+    ``out[c] = fn(a[c], b[c], ...)``."""
+    out = np.empty(arrays[0].shape, dtype=object)
+    for c in np.ndindex(*out.shape):
+        out[c] = fn(*(a[c] for a in arrays))
+    return out
+
+
+def unzip(arr: np.ndarray, n: int) -> tuple:
+    """A mesh-shaped array of ``n``-tuples as ``n`` mesh-shaped arrays."""
+    return tuple(smap(lambda t, i=i: t[i], arr) for i in range(n))
+
+
+# ============================================================ collectives ==
+def _groups(mesh, ax) -> list[list[tuple]]:
+    """The mesh positions grouped by their coordinates off ``ax``, each
+    group in index order over ``ax``."""
+    names = set(_axes(ax))
+    groups: dict[tuple, list] = {}
+    for c in np.ndindex(*mesh.devices.shape):
+        key = tuple(v for k, v in enumerate(c)
+                    if mesh.axis_names[k] not in names)
+        groups.setdefault(key, []).append(c)
+    return [sorted(g, key=lambda c: _axis_index(mesh, ax, c))
+            for g in groups.values()]
+
+
+def _count(fn, ax) -> None:
+    fn.calls += 1
+    key = _axes(ax)
+    fn.by_axis[key] = fn.by_axis.get(key, 0) + 1
+
+
+def _reduce(shards: np.ndarray, ax, mesh, op) -> np.ndarray:
+    out = np.empty(shards.shape, dtype=object)
+    for group in _groups(mesh, ax):
+        root = mesh.devices[group[0]]
+        acc = shards[group[0]]
+        for c in group[1:]:
+            acc = op(acc, shards[c].to(root))
+        for c in group:
+            out[c] = (acc if c == group[0]
+                      else acc.to(mesh.devices[c], copy=True))
+    return out
+
+
+def psum(shards: np.ndarray, ax, mesh) -> np.ndarray:
+    """``lax.psum`` over mesh axis ``ax`` (a name or a tuple of names):
+    every member of a group gets the sum of the group's shards, added in
+    index order on the first member's device."""
+    _count(psum, ax)
+    return _reduce(shards, ax, mesh, torch.add)
+
+
+def pmean(shards: np.ndarray, ax, mesh) -> np.ndarray:
+    """``lax.pmean``: :func:`psum` divided by the axis size."""
+    _count(pmean, ax)
+    n = _axis_size(mesh, ax)
+    return smap(lambda t: t / n, _reduce(shards, ax, mesh, torch.add))
+
+
+def pmax(shards: np.ndarray, ax, mesh) -> np.ndarray:
+    """``lax.pmax``: the elementwise maximum over the group."""
+    _count(pmax, ax)
+    return _reduce(shards, ax, mesh, torch.maximum)
+
+
+def all_gather(shards: np.ndarray, ax, mesh, dim: int) -> np.ndarray:
+    """``lax.all_gather(..., tiled=True)``: every member gets the group's
+    shards concatenated along ``dim`` in index order."""
+    _count(all_gather, ax)
+    out = np.empty(shards.shape, dtype=object)
+    for group in _groups(mesh, ax):
+        for c in group:
+            dev = mesh.devices[c]
+            out[c] = torch.cat([shards[m].to(dev) for m in group], dim=dim)
+    return out
+
+
+COLLECTIVES = (psum, pmean, pmax, all_gather)
+for _fn in COLLECTIVES:
+    _fn.calls, _fn.by_axis = 0, {}
+
+
+def reset_collectives() -> None:
+    """Every collective's counts to 0."""
+    for fn in COLLECTIVES:
+        fn.calls, fn.by_axis = 0, {}
+
+
+def collective_counts() -> dict:
+    """``{name: {axes: calls}}`` of the collectives called since the last
+    :func:`reset_collectives`, axes as a ``+``-joined string."""
+    return {fn.__name__: {"+".join(k): n for k, n in fn.by_axis.items()}
+            for fn in COLLECTIVES if fn.calls}
 
 
 # ================================================================ exchange ==

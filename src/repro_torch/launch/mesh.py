@@ -20,8 +20,10 @@ reference's helper of that name, which faked CPU devices for XLA: here it
 builds the device list itself, ``n`` CPU shards, or the visible GPUs
 cycled.
 
-Nothing here touches CUDA at import time.  The LM meshes
-(``make_production_mesh``) wait for ROADMAP Queue 1 item 8b.
+LM meshes have the axes ``data`` and ``model`` (``make_host_mesh``), or
+``pod``, ``data`` and ``model`` (``make_production_mesh``); the LM
+half's parallelism (``models/parallel.py``) runs over them.  Nothing
+here touches CUDA at import time.
 """
 from __future__ import annotations
 
@@ -150,9 +152,27 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1,
     return _mk((n_data, n_model), ("data", "model"), devices)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The LM meshes (pod/data/model axes) belong to the LM half's
-    parallelism, which is not ported yet."""
-    raise NotImplementedError(
-        "make_production_mesh is not ported to repro_torch yet: ROADMAP "
-        "Queue 1 item 8b (LM-side parallelism)")
+def lm_mesh(n_data: int, n_model: int, device) -> Mesh | None:
+    """The ``(data, model)`` mesh the LM launchers run on: ``None`` for
+    ``(1, 1)`` (the unsharded path), else ``n_data × n_model`` shards of
+    ``device`` (CPU shards, or the visible GPUs cycled)."""
+    n = n_data * n_model
+    if n == 1:
+        return None
+    return make_host_mesh(n_data, n_model,
+                          devices=ensure_fake_devices(n, device))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> Mesh:
+    """16×16 ``(data, model)`` (one pod, 256 devices) or 2×16×16 ``(pod,
+    data, model)`` (two pods, 512).  ``pod`` carries only the once-a-step
+    gradient reduction, ``data`` the data parallelism and the ZeRO
+    shards, ``model`` the tensor and expert parallelism.  Without
+    ``devices=`` it needs that many visible GPUs.
+
+        mesh = make_production_mesh(devices=["cpu"] * 256)
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mk(shape, axes, devices)

@@ -13,8 +13,14 @@ deterministic (seed, step) batches, prefetched on a host thread; every
 ``--ckpt-every`` steps an async checkpoint is written, and the last step
 is saved blocking.  The LR schedule's horizon is ``schedule_steps``
 (default ``steps``), so a run cut short and resumed follows the same
-schedule.  It runs on the card unless ``--device cpu``; ``--n-data`` and
-``--n-model`` above 1 wait for LM sharding (ROADMAP Queue 1 item 8b).
+schedule.  It runs on the card unless ``--device cpu``.  ``--n-data``
+and ``--n-model`` above 1 train on a ``(data, model)`` mesh
+(``models/parallel.py``): ``n_data × n_model`` CPU shards with
+``--device cpu``, else the visible GPUs cycled (one card: ``cuda:0`` ×
+n).  The weights are made on one device from ``--seed`` and split onto
+the mesh, so a mesh run starts from the unsharded run's weights; a
+checkpoint is mesh-independent, so ``--resume auto`` continues on
+another mesh than the one that wrote it (elastic restore).
 Reports per step the loss, LR and gradient norm; at the end the step
 time (CUDA events on the card, the host clock on the CPU; the first
 step, which builds the kernels, is left out when there are others),
@@ -31,7 +37,9 @@ import torch
 import repro_torch.configs as C
 from repro_torch.api.attention import attention_program_for
 from repro_torch.core.device import Timer, resolve_device
+from repro_torch.launch.mesh import device_summary, lm_mesh
 from repro_torch.models import transformer
+from repro_torch.models.parallel import MeshModel, mesh_defs
 from repro_torch.models.params import init_params
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
@@ -73,16 +81,16 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     """Train ``arch`` for ``steps`` steps (counted from 0, so a resumed
     run does ``steps - start``).  Returns ``(params, state, losses)``
     and sets ``train.last_stats`` to a :class:`TrainStats`."""
-    if n_data * n_model > 1:
-        raise NotImplementedError(
-            "sharded training is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 8b (use n_data = n_model = 1)")
     cfg = C.get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     if attention_impl is not None:
         cfg = dataclasses.replace(cfg, attention_impl=attention_impl)
     device = resolve_device(device)
+    mesh = lm_mesh(n_data, n_model, device)
+    if mesh is not None:
+        cfg = cfg.with_mesh(mesh)
+        mesh_defs(cfg, mesh)     # a refused layout fails before init
     attention_program_for(cfg)   # a bad attention_impl fails before init
     horizon = schedule_steps or steps   # keep LR schedule invariant across
     ocfg = opt.OptConfig(lr=lr,          # crash-restart runs of one job
@@ -90,16 +98,20 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
                          total_steps=horizon, schedule=cfg.schedule)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    params = transformer.build_model(cfg, device)
     start = 0
     if ckpt_dir and resume == "auto" and (s := ckpt.latest_step(ckpt_dir)):
+        params = (MeshModel(cfg, mesh) if mesh is not None
+                  else transformer.build_model(cfg, device))
         tree = ckpt.restore(ckpt_dir, s, {"params": params,
                                           "opt": opt.init_state(params)})
         state = tree["opt"]
         start = s
         print(f"[train] resumed step {s} from {ckpt_dir}", flush=True)
     else:
-        init_params(params, torch.Generator(device=device).manual_seed(seed))
+        params = init_params(transformer.build_model(cfg, device),
+                             torch.Generator(device=device).manual_seed(seed))
+        if mesh is not None:
+            params = MeshModel(cfg, mesh, params)
         state = opt.init_state(params)
 
     step_fn = make_train_step(cfg, ocfg)
@@ -139,10 +151,13 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
         step_ms=step_ms, tokens_per_s=batch * seq / (step_ms * 1e-3),
         peak_bytes=peak, timed_steps=len(timed), device=str(device),
         losses=losses, grad_norms=gnorms)
+    where = (f"a ({n_data}, {n_model}) mesh of "
+             f"{device_summary(mesh.devices.flat)}" if mesh is not None
+             else str(device))
     print(f"[train] {arch}: {len(timed)} timed steps of {batch}x{seq} "
           f"tokens: {step_ms:.1f} ms/step, "
           f"{train.last_stats.tokens_per_s:.1f} tok/s, peak "
-          f"{peak / 1e9:.3f} GB on {device}", flush=True)
+          f"{peak / 1e9:.3f} GB on {where}", flush=True)
     return params, state, losses
 
 

@@ -13,8 +13,9 @@ casts is the reference's, because it decides the bf16 roundings:
     GELU MLPs use ``F.gelu(approximate="tanh")``.
 
 ``p`` is anything indexable by the reference's leaf names: a
-``ParamModule`` or a dict of tensors.  The reference's ``shard`` is a
-no-op without a mesh and is not ported (ROADMAP Queue 1 item 8b).
+``ParamModule`` or a dict of tensors.  On a mesh, :func:`shard` is where
+activations are split over the DP axes (the reference's ``shard``
+constraint), and ``models/parallel.py`` runs these layers per shard.
 """
 from __future__ import annotations
 
@@ -22,7 +23,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import NamedSharding, ParamDef
+
+
+def shard(x, mesh, dp):
+    """``x`` split along its batch dim over the DP axes ``dp`` (whole
+    where ``dp`` is ``None``), replicated over the other mesh axes: a
+    mesh-shaped array of per-position tensors on their devices."""
+    return NamedSharding(mesh, (dp,)).split(x)
 
 
 def matmul(x, w):
@@ -49,9 +57,9 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 def norm_defs(d_model: int, kind: str):
     if kind == "ln":
-        return {"scale": ParamDef((d_model,), "ones"),
-                "bias": ParamDef((d_model,), "zeros")}
-    return {"scale": ParamDef((d_model,), "ones")}
+        return {"scale": ParamDef((d_model,), (), "ones"),
+                "bias": ParamDef((d_model,), (), "zeros")}
+    return {"scale": ParamDef((d_model,), (), "ones")}
 
 
 def apply_norm(x, p, kind: str, eps=1e-6):
@@ -84,10 +92,10 @@ def apply_rope(x, cos, sin):
 
 # --------------------------------------------------------------------- MLP --
 def mlp_defs(d_model: int, d_ff: int, act: str):
-    defs = {"w_up": ParamDef((d_model, d_ff)),
-            "w_down": ParamDef((d_ff, d_model))}
+    defs = {"w_up": ParamDef((d_model, d_ff), (None, "model")),
+            "w_down": ParamDef((d_ff, d_model), ("model", None))}
     if act in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((d_model, d_ff))
+        defs["w_gate"] = ParamDef((d_model, d_ff), (None, "model"))
     return defs
 
 
@@ -107,7 +115,8 @@ def apply_mlp(x, p, act: str):
 # -------------------------------------------------------------- embeddings --
 def embed_defs(vocab: int, d_model: int):
     # 0.02 std (GPT-2 convention) keeps tied-embedding logits sane at init
-    return {"table": ParamDef((vocab, d_model), "normal", scale=0.02)}
+    return {"table": ParamDef((vocab, d_model), (None, "model"), "normal",
+                              scale=0.02)}
 
 
 def embed_lookup(tokens, table):
@@ -115,11 +124,17 @@ def embed_lookup(tokens, table):
 
 
 # --------------------------------------------------------- chunked CE loss --
-def _ce_chunk(h_c, table32, l_c, m_c):
-    logits = torch.einsum("bsd,vd->bsv", h_c.float(), table32)
+def _ce_from_logits(logits, l_c, m_c):
+    """(sum of masked losses, mask count) of one chunk's float32 logits,
+    stacked in one tensor."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
-    return ((lse - gold) * m_c).sum(), m_c.sum()
+    return torch.stack([((lse - gold) * m_c).sum(), m_c.sum()])
+
+
+def _ce_chunk(h_c, table32, l_c, m_c):
+    return _ce_from_logits(torch.einsum("bsd,vd->bsv", h_c.float(), table32),
+                           l_c, m_c)
 
 
 def chunked_ce_loss(hidden, table, labels, mask=None, chunk: int = 512):
@@ -142,6 +157,6 @@ def chunked_ce_loss(hidden, table, labels, mask=None, chunk: int = 512):
     for c0 in range(0, s, chunk):
         t, c = checkpoint(_ce_chunk, hidden[:, c0:c0 + chunk], table32,
                           labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
-                          use_reentrant=False)
+                          use_reentrant=False).unbind()
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)

@@ -16,14 +16,25 @@ intra-chunk term is two products in a fixed order, ``(C·Bᵀ) ∘ L`` then
 float32 tensor; its ``lax.scan`` over chunks is a Python loop that
 emits each chunk's state *before* the chunk, as the scan does.
 
+On a mesh (``models/parallel.py``, :func:`apply_ssm_mesh`) each model
+shard holds whole SSM heads: ``wz``, ``wx``, ``conv_w`` are split by
+columns and ``out_proj`` by rows over ``model``; ``wB``, ``wC``,
+``wdt``, ``A_log``, ``D``, ``dt_bias`` and ``norm`` are replicated, and
+each shard takes its heads' slice.  The gated RMSNorm runs over the
+whole ``d_inner``, so its sum of squares is ``psum``med over ``model``
+before the scale; a second ``psum`` completes the row-parallel
+``out_proj``.
+
 ``ssm_impl="boundary_stub"`` (the reference's dry-run stand-in for a
 fused SSD kernel) comes with the dry run, ROADMAP Queue 1 item 16b.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import psum, smap, unzip
 from repro_torch.models.layers import matmul, rms_norm
 from repro_torch.models.params import ParamDef
 
@@ -31,17 +42,18 @@ from repro_torch.models.params import ParamDef
 def ssm_defs(d_model: int, d_inner: int, n_heads: int, d_state: int,
              n_groups: int, d_conv: int = 4):
     return {
-        "wz": ParamDef((d_model, d_inner)),
-        "wx": ParamDef((d_model, d_inner)),
-        "wB": ParamDef((d_model, n_groups * d_state)),
-        "wC": ParamDef((d_model, n_groups * d_state)),
-        "wdt": ParamDef((d_model, n_heads)),
-        "conv_w": ParamDef((d_conv, d_inner), "normal", scale=0.5),
-        "A_log": ParamDef((n_heads,), "zeros"),
-        "D": ParamDef((n_heads,), "ones"),
-        "dt_bias": ParamDef((n_heads,), "zeros"),
-        "norm": ParamDef((d_inner,), "ones"),
-        "out_proj": ParamDef((d_inner, d_model)),
+        "wz": ParamDef((d_model, d_inner), (None, "model")),
+        "wx": ParamDef((d_model, d_inner), (None, "model")),
+        "wB": ParamDef((d_model, n_groups * d_state), ()),
+        "wC": ParamDef((d_model, n_groups * d_state), ()),
+        "wdt": ParamDef((d_model, n_heads), ()),
+        "conv_w": ParamDef((d_conv, d_inner), (None, "model"), "normal",
+                           scale=0.5),
+        "A_log": ParamDef((n_heads,), (), "zeros"),
+        "D": ParamDef((n_heads,), (), "ones"),
+        "dt_bias": ParamDef((n_heads,), (), "zeros"),
+        "norm": ParamDef((d_inner,), (), "ones"),
+        "out_proj": ParamDef((d_inner, d_model), ("model", None)),
     }
 
 
@@ -156,22 +168,109 @@ def _heads(t, g, hpg):
     return torch.repeat_interleave(t, hpg, dim=-2)
 
 
-def _mix(x, p, cfg, chunk):
-    """The mixer on (B, S, d): (out, xin, final state)."""
+def _head_range(p, cfg, m: int) -> tuple:
+    """``(h0, hl)``: the heads whose ``wz`` columns ``p`` holds, for model
+    shard ``m`` (all of them where ``wz`` is whole)."""
+    hl = p["wz"].shape[1] // cfg.ssm_head_dim
+    return m * hl if hl < cfg.ssm_heads else 0, hl
+
+
+def _sl(t, h0: int, hl: int, n: int, dim: int = -1):
+    """Heads ``h0 .. h0 + hl`` of ``t`` along ``dim`` (``t`` itself when
+    they are all ``n``)."""
+    return t if hl == n else t.narrow(dim, h0, hl)
+
+
+def _gated(x, p, cfg, chunk, heads):
+    """The mixer on (B, S, d) up to its gated norm, for the ``heads``
+    ``(h0, hl)`` whose columns ``p`` holds: ``(y·silu(z), xin, final
+    state)``."""
     _check_impl(cfg)
     h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
+    h0, hl = heads
     b, s, _ = x.shape
     z = matmul(x, p["wz"])
     xin = matmul(x, p["wx"])
     xs = F.silu(_causal_conv(xin, p["conv_w"]))
-    B = _heads(matmul(x, p["wB"]), g, h // g)
-    C = _heads(matmul(x, p["wC"]), g, h // g)
-    dt, A, D = _dt_A_D(p, matmul(x, p["wdt"]))
-    y, final = ssd_chunked(xs.reshape(b, s, h, hd), dt, A, B, C, D,
+    B = _sl(_heads(matmul(x, p["wB"]), g, h // g), h0, hl, h, -2)
+    C = _sl(_heads(matmul(x, p["wC"]), g, h // g), h0, hl, h, -2)
+    dt, A, D = (_sl(t, h0, hl, h) for t in _dt_A_D(p, matmul(x, p["wdt"])))
+    y, final = ssd_chunked(xs.reshape(b, s, hl, hd), dt, A, B, C, D,
                            chunk=chunk)
-    y = y.reshape(b, s, h * hd).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = y.reshape(b, s, hl * hd).to(x.dtype)
+    return y * F.silu(z), xin, final
+
+
+def _mix(x, p, cfg, chunk):
+    """The mixer on (B, S, d): (out, xin, final state)."""
+    y, xin, final = _gated(x, p, cfg, chunk, (0, cfg.ssm_heads))
+    y = rms_norm(y, p["norm"])
     return matmul(y, p["out_proj"]), xin, final
+
+
+def _tail(xin, k: int):
+    """The last ``k`` rows of the pre-conv input, left-padded with zeros
+    when there are fewer."""
+    s = xin.shape[1]
+    return xin[:, -k:] if s >= k else F.pad(xin, (0, 0, k - s, 0))
+
+
+def _norm_out(gs, ps, cfg, mesh, heads):
+    """The gated RMSNorm over the whole ``d_inner`` and the row-parallel
+    ``out_proj`` on a mesh: one ``psum`` of the sums of squares and one
+    of the partial products, both over ``model``."""
+    hd = cfg.ssm_head_dim
+    ss = psum(smap(lambda g: (g.float() * g.float()).sum(-1, keepdim=True),
+                   gs), "model", mesh)
+
+    def local(g, s, p, hr):
+        y = (g.float() * torch.rsqrt(s / cfg.ssm_inner + 1e-6)).to(g.dtype)
+        y = y * p["norm"].narrow(0, hr[0] * hd, hr[1] * hd)
+        return matmul(y, p["out_proj"])
+
+    return psum(smap(local, gs, ss, ps, heads), "model", mesh)
+
+
+def _mesh_heads(ps, cfg, mesh) -> np.ndarray:
+    """Each position's ``(h0, hl)`` (:func:`_head_range` at its index
+    over ``model``)."""
+    k = mesh.axis_names.index("model") if "model" in mesh.axis_names \
+        else None
+    heads = np.empty(ps.shape, dtype=object)
+    for c in np.ndindex(*ps.shape):
+        heads[c] = _head_range(ps[c], cfg, 0 if k is None else c[k])
+    return heads
+
+
+def apply_ssm_mesh(xs, ps, cfg, mesh, *, chunk: int = 128):
+    """The mixer over ``mesh`` on each position's (B, S, d) →
+    ``(outs, tails, finals)`` as :func:`apply_ssm_with_state` gives them,
+    each shard's for its heads.  Unsplit heads (``ssm_heads`` not
+    divisible by the ``model`` axis) run whole on every shard."""
+    heads = _mesh_heads(ps, cfg, mesh)
+    k = ps.flat[0]["conv_w"].shape[0]
+    if heads.flat[0][1] == cfg.ssm_heads:
+        out = smap(lambda x, p: _mix(x, p, cfg, chunk), xs, ps)
+        outs, xins, finals = unzip(out, 3)
+    else:
+        out = smap(lambda x, p, hr: _gated(x, p, cfg, chunk, hr), xs, ps,
+                   heads)
+        gs, xins, finals = unzip(out, 3)
+        outs = _norm_out(gs, ps, cfg, mesh, heads)
+    return outs, smap(lambda t: _tail(t, k), xins), finals
+
+
+def ssm_decode_mesh(xs, ps, cfg, mesh, convs, states):
+    """:func:`ssm_decode` over ``mesh``, each shard for its heads →
+    ``(outs, convs, states)``."""
+    heads = _mesh_heads(ps, cfg, mesh)
+    if heads.flat[0][1] == cfg.ssm_heads:
+        return unzip(smap(lambda x, p, cv, st: ssm_decode(x, p, cfg, cv, st),
+                          xs, ps, convs, states), 3)
+    out = smap(lambda x, p, cv, st, hr: _gated_decode(x, p, cfg, cv, st, hr),
+               xs, ps, convs, states, heads)
+    gs, convs, states = unzip(out, 3)
+    return _norm_out(gs, ps, cfg, mesh, heads), convs, states
 
 
 def apply_ssm(x, p, cfg, *, chunk: int = 128):
@@ -185,16 +284,24 @@ def apply_ssm_with_state(x, p, cfg, *, chunk: int = 128):
     is the last ``K`` rows of the pre-conv input, left-padded with zeros
     when ``S < K``; the state is float32."""
     out, xin, final = _mix(x, p, cfg, chunk)
-    k, s = p["conv_w"].shape[0], x.shape[1]
-    tail = xin[:, -k:] if s >= k else F.pad(xin, (0, 0, k - s, 0))
-    return out, tail, final
+    return out, _tail(xin, p["conv_w"].shape[0]), final
 
 
 def ssm_decode(x, p, cfg, conv_state, ssm_state):
     """Single-token mixer. x: (B, 1, d). Carries (conv_state, ssm_state)
     and returns ``(out, conv_state, ssm_state)``."""
+    y, conv_state, ssm_state = _gated_decode(x, p, cfg, conv_state,
+                                             ssm_state, (0, cfg.ssm_heads))
+    y = rms_norm(y, p["norm"])
+    return matmul(y, p["out_proj"]), conv_state, ssm_state
+
+
+def _gated_decode(x, p, cfg, conv_state, ssm_state, heads):
+    """:func:`ssm_decode` up to its gated norm, for the ``heads``
+    ``(h0, hl)`` whose columns ``p`` (and the caches) hold."""
     _check_impl(cfg)
     h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
+    h0, hl = heads
     b = x.shape[0]
     z = matmul(x, p["wz"])
     xin = matmul(x, p["wx"])[:, 0]                       # (B, d_inner)
@@ -204,11 +311,11 @@ def ssm_decode(x, p, cfg, conv_state, ssm_state):
     prod = torch.promote_types(cat, p["conv_w"].dtype)
     xs = F.silu(torch.einsum("bkc,kc->bc", conv_state.to(prod),
                              p["conv_w"].to(prod)))
-    B = _heads(matmul(x, p["wB"])[:, 0], g, h // g)
-    C = _heads(matmul(x, p["wC"])[:, 0], g, h // g)
-    dt, A, D = _dt_A_D(p, matmul(x, p["wdt"])[:, 0])
-    y, ssm_state = ssd_decode_step(ssm_state, xs.reshape(b, h, hd), dt, A,
+    B = _sl(_heads(matmul(x, p["wB"])[:, 0], g, h // g), h0, hl, h, -2)
+    C = _sl(_heads(matmul(x, p["wC"])[:, 0], g, h // g), h0, hl, h, -2)
+    dt, A, D = (_sl(t, h0, hl, h)
+                for t in _dt_A_D(p, matmul(x, p["wdt"])[:, 0]))
+    y, ssm_state = ssd_decode_step(ssm_state, xs.reshape(b, hl, hd), dt, A,
                                    B, C, D)
-    y = y.reshape(b, 1, h * hd).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return matmul(y, p["out_proj"]), conv_state, ssm_state
+    y = y.reshape(b, 1, hl * hd).to(x.dtype)
+    return y * F.silu(z), conv_state, ssm_state

@@ -32,13 +32,17 @@ block where it runs — is run again in the backward, so a
 ``flash_pallas`` config launches the flash forward kernel twice per
 attention call and the backward kernels once.
 
-The MoE block calls ``moe.apply_moe``, the dense dispatch, where the
-reference calls ``apply_moe_ep`` (which is ``apply_moe`` without a
-mesh); the expert-parallel path comes with LM sharding (ROADMAP Queue 1
-item 8b).  The reference's ``L.shard`` constraints are no-ops without a
-mesh and are dropped; the dry-run stand-ins ``attention_impl=
-"boundary_stub"`` and ``ssm_impl="boundary_stub"`` come with the dry run
-(item 16b): ``attention_program_for`` and ``models/ssm.py`` refuse them.
+On one device the MoE block calls ``moe.apply_moe``, the dense
+dispatch, as the reference's ``apply_moe_ep`` does without a mesh.
+Given a ``parallel.MeshModel`` (a ``params.OnMesh``) in place of the
+parameter module, :func:`forward_hidden`, :func:`train_loss`,
+:func:`prefill` and :func:`decode_step` hand it to its own methods,
+which run on its mesh (``models/parallel.py``): tensor
+parallel over ``model``, data parallel over the DP axes, the MoE expert
+parallel (``apply_moe_ep``), the flash kernel per shard.  The dry-run
+stand-ins ``attention_impl="boundary_stub"`` and
+``ssm_impl="boundary_stub"`` come with the dry run (ROADMAP Queue 1
+item 16b): ``attention_program_for`` and ``models/ssm.py`` refuse them.
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.params import ParamDef, ParamModule
+from repro_torch.models.params import (OnMesh, ParamDef, ParamModule,
+                                       fsdp_transform)
 
 ATTN_FAMILIES = ("dense", "encoder", "vlm", "moe")
 FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
@@ -67,14 +72,14 @@ def _check_family(cfg) -> None:
 def attn_defs(cfg):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((d, h * hd)),
-        "wk": ParamDef((d, kv * hd)),
-        "wv": ParamDef((d, kv * hd)),
-        "wo": ParamDef((h * hd, d)),
+        "wq": ParamDef((d, h * hd), (None, "model")),
+        "wk": ParamDef((d, kv * hd), (None, "model")),
+        "wv": ParamDef((d, kv * hd), (None, "model")),
+        "wo": ParamDef((h * hd, d), ("model", None)),
     }
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), "ones")
-        defs["k_norm"] = ParamDef((hd,), "ones")
+        defs["q_norm"] = ParamDef((hd,), (), "ones")
+        defs["k_norm"] = ParamDef((hd,), (), "ones")
     return defs
 
 
@@ -128,11 +133,33 @@ def apply_attn_decode(x, p, cfg, *, cache, layer_pos: int):
 def attn_cache_defs(cfg, batch: int, cache_len: int):
     kv, hd = cfg.kv_heads, cfg.head_dim
     sc = min(cache_len, cfg.swa_window) if cfg.swa_window else cache_len
+    kv_pspec = _cache_pspec(cfg, batch, sc)
     return {
-        "k": ParamDef((batch, sc, kv, hd), "zeros"),
-        "v": ParamDef((batch, sc, kv, hd), "zeros"),
-        "slot_pos": ParamDef((sc,), "zeros", dtype=torch.int32),
+        "k": ParamDef((batch, sc, kv, hd), kv_pspec, "zeros"),
+        "v": ParamDef((batch, sc, kv, hd), kv_pspec, "zeros"),
+        "slot_pos": ParamDef((sc,), (), "zeros", dtype=torch.int32),
     }
+
+
+def _cache_pspec(cfg, batch: int, seq: int) -> tuple:
+    """The reference's KV-cache spec over both mesh axes: the batch over
+    the DP axes when divisible, else the cache's sequence over ``data``
+    (a B=1 decode); kv heads over ``model`` when divisible, else
+    head_dim.  The port's mesh executor keeps the head split and the
+    batch split, and replicates where the reference splits the sequence
+    or head_dim (ROADMAP Queue 3, known deviations)."""
+    mm = max(1, cfg.mesh_model)
+    if cfg.kv_heads % mm == 0 and cfg.kv_heads >= mm:
+        model_dims = (None, "model", None)
+    elif cfg.head_dim % mm == 0:
+        model_dims = (None, None, "model")
+    else:
+        model_dims = (None, None, None)
+    if batch % max(1, cfg.mesh_dp) == 0 and batch >= cfg.mesh_dp > 1:
+        return (cfg.dp_axes, *model_dims)
+    if cfg.mesh_dp > 1 and seq % cfg.mesh_dp == 0:
+        return (None, "data", *model_dims[1:])
+    return (None, *model_dims)
 
 
 # -------------------------------------------------------------------- blocks --
@@ -229,17 +256,22 @@ def param_defs(cfg):
                                        for _ in range(cfg.n_layers)]}
     if cfg.family == "encoder":
         defs["embed_in"] = {}  # frames arrive pre-embedded (modality stub)
-        defs["mask_embed"] = ParamDef((cfg.d_model,), "normal", 1.0)
-        defs["head"] = ParamDef((cfg.vocab, cfg.d_model))
+        defs["mask_embed"] = ParamDef((cfg.d_model,), (), "normal", 1.0)
+        defs["head"] = ParamDef((cfg.vocab, cfg.d_model), (None, "model"))
     else:
         defs["embed"] = L.embed_defs(cfg.vocab, cfg.d_model)
         if not cfg.tie_embeddings:
-            defs["head"] = ParamDef((cfg.vocab, cfg.d_model))
+            defs["head"] = ParamDef((cfg.vocab, cfg.d_model),
+                                    (None, "model"))
     if cfg.family == "hybrid":
         defs["shared_attn"] = shared_attn_defs(cfg)
     if cfg.family == "vlm":
-        defs["patch_proj"] = ParamDef((cfg.vlm_patch_dim, cfg.d_model))
+        defs["patch_proj"] = ParamDef((cfg.vlm_patch_dim, cfg.d_model),
+                                      (None, "model"))
     defs["ln_f"] = L.norm_defs(cfg.d_model, cfg.norm)
+    if cfg.sharding == "fsdp":
+        total = max(1, cfg.mesh_dp) * max(1, cfg.mesh_model)
+        defs = fsdp_transform(defs, cfg.dp_axes, total)
     return defs
 
 
@@ -294,8 +326,12 @@ def _layer(x, bp, shared, cfg, positions, idx):
 def forward_hidden(cfg, params, batch):
     """Inputs + blocks + final norm -> hidden (B, S, d), aux loss (0.0
     unless MoE; the VLM's patch rows are sliced off).  Differentiable;
-    each layer is rematerialised in the backward when ``cfg.remat``."""
+    each layer is rematerialised in the backward when ``cfg.remat``.  On
+    a mesh the hidden rows are gathered onto the first position's
+    device, and the aux loss is the first position's."""
     _check_family(cfg)
+    if isinstance(params, OnMesh):
+        return params.forward_hidden(cfg, batch)
     x = _inputs(cfg, params, batch)
     positions = _positions(x)
     shared = params["shared_attn"] if cfg.family == "hybrid" else None
@@ -318,7 +354,10 @@ def train_loss(cfg, params, batch):
     """Mean cross-entropy plus ``moe_aux_weight`` × the MoE aux loss: the
     encoder against its untied head over ``batch["mask"]`` (no label
     shift); the decoders against the tied embedding or the head over
-    ``batch["loss_mask"]`` (all positions when absent)."""
+    ``batch["loss_mask"]`` (all positions when absent).  On a mesh it
+    is the first position's copy of the replicated loss."""
+    if isinstance(params, OnMesh):
+        return params.train_loss(cfg, batch)
     hidden, aux = forward_hidden(cfg, params, batch)
     if cfg.family == "encoder":
         table = params["head"]
@@ -361,11 +400,17 @@ def cache_defs(cfg, batch: int, cache_len: int):
 
 
 def _ssm_cache_defs(cfg, batch: int):
-    """The last 4 pre-conv rows (``activ_dtype``) and the float32 state."""
+    """The last 4 pre-conv rows (``activ_dtype``) and the float32 state,
+    with the reference's specs (the port's mesh executor also splits the
+    state's heads over ``model``, as it splits the SSM's heads)."""
+    b_ax = (cfg.dp_axes if (cfg.mesh_dp > 1 and batch % cfg.mesh_dp == 0
+                            and batch >= cfg.mesh_dp) else None)
     return {
-        "conv": ParamDef((batch, 4, cfg.ssm_inner), "zeros"),
+        "conv": ParamDef((batch, 4, cfg.ssm_inner), (b_ax, None, "model"),
+                         "zeros"),
         "state": ParamDef((batch, cfg.ssm_heads, cfg.ssm_state,
-                           cfg.ssm_head_dim), "zeros", dtype=torch.float32),
+                           cfg.ssm_head_dim), (b_ax, None, None, None),
+                          "zeros", dtype=torch.float32),
     }
 
 
@@ -392,6 +437,8 @@ def decode_step(cfg, params, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1) int; pos: int (synchronized
     batch).  Returns (logits (B, 1, V) float32, cache); the cache's k/v
     tensors are updated in place."""
+    if isinstance(params, OnMesh):
+        return params.decode_step(cfg, cache, tokens, pos)
     fam = cfg.family
     x = _embed(cfg, params, tokens).to(cfg.activ_dtype)
     if fam in ("dense", "moe", "vlm"):
@@ -429,7 +476,10 @@ def decode_step(cfg, params, cache, tokens, pos: int):
 @torch.no_grad()
 def prefill(cfg, params, batch, cache_len: int):
     """Process a full prompt, returning (last-token logits, decode cache).
-    The encoder returns its last frame's logits and an empty cache."""
+    The encoder returns its last frame's logits and an empty cache.  On a
+    mesh the cache is mesh-shaped, one cache per position."""
+    if isinstance(params, OnMesh):
+        return params.prefill(cfg, batch, cache_len)
     fam = cfg.family
     _check_family(cfg)
     if fam == "encoder":

@@ -19,8 +19,13 @@ in the process, and ``save(block=True)`` (and :func:`wait`) joins every
 pending writer first.  In the reference a still-running async save of
 step N can remove and replace ``step_N`` after a blocking save of the
 same step has returned, so a restore right after it can find leaves
-missing.  Sharded (elastic) restore waits for LM-side sharding, ROADMAP
-Queue 1 item 8b.
+missing.
+
+Checkpoints are mesh-independent: ``save`` gathers every leaf of a
+``parallel.MeshModel`` and every ``Sharded`` moment whole, and
+``restore`` splits each onto whatever mesh the ``like`` tree is placed
+on — the elastic restore of the reference's ``shardings=`` (write on
+one device, resume on a ``(2, 1)`` mesh, or the other way round).
 """
 from __future__ import annotations
 
@@ -33,15 +38,24 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.models.params import Sharded
+from repro_torch.models.parallel import MeshModel
+
 _write_lock = threading.Lock()      # one writer at a time
 _pending: list[threading.Thread] = []
 _pending_lock = threading.Lock()
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+def _flatten(tree, prefix: str = "") -> dict:
     if isinstance(tree, torch.nn.Module):
         return {f"{prefix}{n}": p for n, p in tree.named_parameters()}
+    if isinstance(tree, MeshModel):
+        return {f"{prefix}{n}": Sharded(s, tree.shardings[n], tree.flat[n]
+                                        .shape)
+                for n, s in tree.leaves().items()}
+    if isinstance(tree, Sharded):
+        return {prefix[:-1]: tree}
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
@@ -50,8 +64,9 @@ def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
     return {prefix[:-1]: torch.as_tensor(tree)}
 
 
-def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
-    t = t.detach().to("cpu", copy=True)
+def _to_numpy(t) -> tuple[np.ndarray, str]:
+    t = (t.gather("cpu").detach() if isinstance(t, Sharded)
+         else t.detach().to("cpu", copy=True))
     name = str(t.dtype).removeprefix("torch.")
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -142,10 +157,11 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 def restore(ckpt_dir: str, step: int, like_tree):
     """Load ``step`` into the structure of ``like_tree``: a module's
-    parameters are overwritten in place, a dict becomes a new dict of
-    tensors in each ``like`` leaf's dtype and on its device.  A corrupt
-    or unreadable manifest raises ``ValueError`` (resume via
-    ``latest_step`` never selects one)."""
+    parameters (a ``MeshModel``'s shards) are overwritten in place, a
+    ``Sharded`` leaf becomes a new one split as the ``like`` leaf is, a
+    dict a new dict of tensors in each ``like`` leaf's dtype and on its
+    device.  A corrupt or unreadable manifest raises ``ValueError``
+    (resume via ``latest_step`` never selects one)."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     try:
         with open(os.path.join(d, "manifest.json")) as f:
@@ -161,23 +177,31 @@ def restore(ckpt_dir: str, step: int, like_tree):
             "the checkpoint is corrupt")
     dtypes = manifest.get("dtypes", {})
 
-    def load(key, like):
+    def load(key, shape, dtype, device):
         arr = np.load(os.path.join(d, manifest["leaves"][key]))
         t = _from_numpy(arr, dtypes.get(key, ""))
-        if tuple(t.shape) != tuple(like.shape):
+        if tuple(t.shape) != tuple(shape):
             raise ValueError(f"checkpoint step_{step} leaf {key}: shape "
-                             f"{tuple(t.shape)}, expected "
-                             f"{tuple(like.shape)}")
-        return t.to(dtype=like.dtype, device=like.device)
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+        return t.to(dtype=dtype, device=device)
 
     def build(node, prefix):
         if isinstance(node, torch.nn.Module):
             with torch.no_grad():
                 for n, p in node.named_parameters():
-                    p.copy_(load(f"{prefix}{n}", p))
+                    p.copy_(load(f"{prefix}{n}", p.shape, p.dtype, p.device))
             return node
+        if isinstance(node, MeshModel):
+            node.load_state_dict({
+                n: load(f"{prefix}{n}", node.flat[n].shape, s.flat[0].dtype,
+                        "cpu") for n, s in node.leaves().items()})
+            return node
+        if isinstance(node, Sharded):
+            return Sharded.split(load(prefix[:-1], node.shape, node.dtype,
+                                      "cpu"), node.sharding)
         if isinstance(node, dict):
             return {k: build(v, f"{prefix}{k}/") for k, v in node.items()}
-        return load(prefix[:-1], torch.as_tensor(node))
+        like = torch.as_tensor(node)
+        return load(prefix[:-1], like.shape, like.dtype, like.device)
 
     return build(like_tree, "")

@@ -6,13 +6,21 @@ along the batch dim; each slice's gradients (in the parameters' dtype,
 from ``torch.autograd.grad``) are added into float32 buffers, never into
 ``.grad`` in the parameters' dtype, and one AdamW update follows the
 last slice, as the reference's ``lax.scan`` accumulates in float32.
+
+On a mesh (``params`` a ``parallel.MeshModel``) each microbatch is split
+over the DP axes inside the model, every shard's gradients accumulate in
+float32, and once a step the copies of each replicated leaf are summed
+over the axes it is replicated on (``parallel.replica_grads``, one
+counted ``psum`` a leaf); the leaves split over every axis keep theirs.
+The ZeRO-sharded AdamW update follows (``train/optimizer.py``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.api.attention import attention_program_for
-from repro_torch.models import transformer
+from repro_torch.models import parallel, transformer
 from repro_torch.train import optimizer as opt
 
 
@@ -49,7 +57,31 @@ def make_train_step(cfg, ocfg: opt.OptConfig):
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(leaves, gs)]
 
+    def mesh_step(mm, opt_state, batch):
+        shards = mm.leaves()
+        keys = [(n, c) for n, a in shards.items() for c in np.ndindex(
+            *a.shape)]
+        leaves = [shards[n][c] for n, c in keys]
+        b = next(iter(batch.values())).shape[0] // n_micro
+        acc, tot = {}, 0.0
+        for i in range(n_micro):
+            mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
+            loss = loss_fn(cfg, mm, mb)
+            for key, g in zip(keys, grads_of(loss, leaves)):
+                acc[key] = g.float() if i == 0 else acc[key] + g.float()
+            tot = tot + loss.detach()
+        grads = {}
+        for n, a in shards.items():
+            grads[n] = np.empty(a.shape, dtype=object)
+            for c in np.ndindex(*a.shape):
+                grads[n][c] = acc.pop((n, c)).div_(n_micro)
+        grads = parallel.replica_grads(mm, grads)
+        opt_state, stats = opt.adamw_update(ocfg, mm, grads, opt_state)
+        return mm, opt_state, {"loss": tot / n_micro, **stats}
+
     def train_step(params, opt_state, batch):
+        if isinstance(params, parallel.MeshModel):
+            return mesh_step(params, opt_state, batch)
         names, leaves = zip(*params.named_parameters())
         if n_micro == 1:
             loss = loss_fn(cfg, params, batch)

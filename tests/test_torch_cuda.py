@@ -1493,3 +1493,155 @@ def test_tuned_program_on_card(cuda_device, tmp_path, name, shape):
     assert wrapper.launches - launches == len(sweep_schedule(steps, prog.t))
     torch.testing.assert_close(y, ref.reference(x, spec, steps), atol=2e-5,
                                rtol=0)
+
+
+# ---- LM-side parallelism on a one-card mesh ------------------------------
+def _lm_mesh(device):
+    from repro_torch.launch.mesh import ensure_fake_devices, make_host_mesh
+
+    return make_host_mesh(2, 2, devices=ensure_fake_devices(4, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "granite-moe-3b-a800m",
+                                  "mamba2-130m", "zamba2-2.7b",
+                                  "internvl2-1b"])
+def test_mesh_prefill_decode_on_card(cuda_device, arch):
+    """Reduced ``arch`` on a (2, 2) mesh of ``cuda:0`` × 4, the flash
+    kernel in every shard: prefill and two decode steps within 1e-4 of
+    the unsharded path on the card, greedy tokens equal (f32), and the
+    forward kernel launched once per attending layer per shard."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.parallel import MeshModel
+
+    cfg, model = _family(arch, cuda_device, attention_impl="flash_pallas")
+    mesh = _lm_mesh(cuda_device)
+    mcfg = cfg.with_mesh(mesh)
+    mm = MeshModel(mcfg, mesh, model)
+    g = torch.Generator(cuda_device).manual_seed(1)
+    s = 64 - (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, s), generator=g,
+                                     device=cuda_device)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((4, cfg.vlm_patches,
+                                        cfg.vlm_patch_dim), generator=g,
+                                       device=cuda_device)
+    want, wc = transformer.prefill(cfg, model, batch, 80)
+    before = fa.flash_attention_fwd.launches
+    got, gc = transformer.prefill(mcfg, mm, batch, 80)
+    torch.cuda.synchronize()
+    calls = {"ssm": 0, "hybrid": transformer.n_shared_invocations(cfg)}.get(
+        cfg.family, cfg.n_layers)
+    assert fa.flash_attention_fwd.launches - before == 4 * calls
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    tok = torch.argmax(want[:, -1], dim=-1)[:, None]
+    for i in range(2):
+        w, wc = transformer.decode_step(cfg, model, wc, tok, 64 + i)
+        o, gc = transformer.decode_step(mcfg, mm, gc, tok, 64 + i)
+        torch.testing.assert_close(o, w, atol=1e-4, rtol=1e-4)
+        assert torch.equal(torch.argmax(o[:, -1], -1),
+                           torch.argmax(w[:, -1], -1))
+        tok = torch.argmax(w[:, -1], dim=-1)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "granite-moe-3b-a800m",
+                                  "mamba2-130m"])
+def test_mesh_train_step_on_card(cuda_device, arch, monkeypatch):
+    """One train step of reduced ``arch`` (remat, 2 microbatches) on a
+    (2, 2) mesh of ``cuda:0`` × 4 against the unsharded step on the card:
+    parameters within 2e-4 (f32, lr 1e-3; the MoE's aux loss weighed
+    0.01: the expert-parallel aux is the data shards' mean by design, so
+    the unsharded step takes each data shard's aux of the dense dispatch
+    and their mean), and the flash kernels launched per shard: the
+    forward twice per attending layer and microbatch, each backward
+    kernel once."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models.parallel import MeshModel
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+
+    cfg, model = _family(arch, cuda_device, attention_impl="flash_pallas",
+                         remat=True, microbatches=2, moe_aux_weight=0.01)
+    mesh = _lm_mesh(cuda_device)
+    mcfg = cfg.with_mesh(mesh)
+    mm = MeshModel(mcfg, mesh, model)
+    toks = torch.randint(0, cfg.vocab, (4, 64), device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+    ocfg = opt.OptConfig(lr=1e-3, warmup=1)
+    dense = moe.apply_moe
+
+    def ep_aux(x, p, **kw):
+        y, _ = dense(x, p, **kw)
+        return y, sum(dense(xd, p, **kw)[1] for xd in x.chunk(2)) / 2
+
+    with monkeypatch.context() as m:
+        m.setattr(moe, "apply_moe", ep_aux)
+        make_train_step(cfg, ocfg)(model, opt.init_state(model), batch)
+    counts = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkdv.launches)
+    make_train_step(mcfg, ocfg)(mm, opt.init_state(mm), batch)
+    torch.cuda.synchronize()
+    per = 0 if cfg.family == "ssm" else cfg.n_layers * 2 * 4
+    assert (fa.flash_attention_fwd.launches - counts[0],
+            fa.flash_attention_bwd_dq.launches - counts[1],
+            fa.flash_attention_bwd_dkdv.launches - counts[2]) == \
+        (2 * per, per, per)
+    got = mm.state_dict(cuda_device)
+    for n, p in model.named_parameters():
+        torch.testing.assert_close(got[n], p.detach(), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (2, 2048, 16, 4, 80, 1024),     # h2o-danube's heads on a model shard
+    (1, 2048, 16, 4, 80, 1024),     # ... and a training microbatch row
+    (2, 2048, 12, 4, 64, None)])    # granite-moe's heads on a model shard
+def test_flash_fwd_at_shard_shapes(cuda_device, dtype, b, s, h, kv, hd,
+                                   window):
+    """The flash forward at the per-shard head counts a (2, 2) mesh gives
+    the full-width configs (GQA kept), against its plain version: f32
+    within 2e-5, bf16 within two units in the last place per element."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(sh, generator=g, device=cuda_device).to(dtype)
+               for sh in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    out, lse = fa.flash_attention_fwd(q, k, v, window=window)
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    else:
+        lim = 1e-4 + 2.0 ** -6 * want.double().abs()
+        assert bool(((out.double() - want.double()).abs() <= lim).all())
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_at_shard_shape(cuda_device, dtype):
+    """The flash backward kernels at the per-shard shape of a (2, 2)
+    mesh's h2o-danube train step (one row, 16 of 32 heads, 4 kv heads,
+    hd 80, windowed), against their plain version: f32 within 1e-4, bf16
+    within two units in the last place per element."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(4)
+    b, s, h, kv, hd, window = 1, 2048, 16, 4, 80, 1024
+    q, k, v, do = (torch.randn(sh, generator=g, device=cuda_device).to(dtype)
+                   for sh in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                              (b, s, h, hd)))
+    out, lse = fa.flash_attention_fwd(q, k, v, window=window)
+    got = fa.flash_attention_bwd(q, k, v, do, out, lse, window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, window=window)
+    for a, w in zip(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, w, atol=1e-4, rtol=1e-4)
+        else:
+            lim = 1e-4 + 2.0 ** -6 * w.double().abs()
+            assert bool(((a.double() - w.double()).abs() <= lim).all())

@@ -308,8 +308,10 @@ def test_launch_serve_runs_on_cpu():
     assert out.kernel_launches_per_prefill == 0      # plain version on CPU
     assert out.decode_steps == 2 and out.prefill_ms > 0
     assert out.device == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tserve.run("h2o-danube-1.8b", n_data=2, device="cpu")
+    sharded = tserve.run("h2o-danube-1.8b", batch=2, prompt_len=64,
+                         max_new=3, repeats=1, device="cpu",
+                         attention_impl="flash_pallas", n_data=2, n_model=2)
+    assert torch.equal(sharded.tokens, out.tokens)   # the same greedy run
 
 
 def test_launch_serve_refuses_bad_attention_impl_before_init(monkeypatch):

@@ -312,8 +312,11 @@ def test_launch_train_cli_and_refusals(monkeypatch, capsys):
     tlaunch.main()
     out = capsys.readouterr().out
     assert "[train] step 1 loss" in out and "tok/s" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tlaunch.train("h2o-danube-1.8b", n_data=2, device="cpu")
+    _, _, one = tlaunch.train("h2o-danube-1.8b", steps=2, batch=2, seq=32,
+                              device="cpu")
+    _, _, mesh = tlaunch.train("h2o-danube-1.8b", steps=2, batch=2, seq=32,
+                               device="cpu", n_data=2, n_model=2)
+    np.testing.assert_allclose(mesh, one, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="has no program mapping"):
         tlaunch.train("h2o-danube-1.8b", device="cpu",
                       attention_impl="pallas")
