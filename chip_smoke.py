@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout, one card
     python3 chip_smoke.py lm   # phases alone: 2d 3d sharded campaign
                                # serve tune systems lm train families mesh
+                               # dryrun
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source and per tap-set library of the 2-D template
@@ -115,6 +116,26 @@ in its own counted run:
   model shard, gathered over ``data``).  Every flash launch and every
   collective (``psum``, ``pmean``, ``all_gather``, by axis) is held to
   its prediction.
+* dryrun (``stencil2d``, ``stencil3d``, ``flash_attention``,
+  ``flash_attention_bwd``): the deprecated shims with ``plan=None``
+  (``ops.ebisu_stencil`` of j2d5pt at 8352², t = 12: one launch at the
+  request-default tile; ``sweep.run_sweeps`` of j3d7pt at
+  2560×288×384, 17 steps: three), each warning and held to the planned
+  program (< 1e-4), the request-default tiles' kernel ms beside the
+  planned tiles'; h2o-danube-1.8b served at 4 × 8192 with
+  ``attention_impl="boundary_stub"`` (no flash launch) and mamba2-130m
+  prefilled with ``ssm_impl="boundary_stub"``, each beside its kernel's
+  or scan's prefill; h2o-danube with ``sharding="fsdp"`` on the (2, 2)
+  ``cuda:0`` × 4 mesh, in f32 at depth 2 against the unsharded path
+  (the mesh phase's limits) and in bf16 at full width (prefill and
+  train-step ms; flash launches, one a layer a shard, and collectives
+  held to a run of the same program on meta shards); the dry run's
+  record of h2o-danube's prefill on the mesh phase's (2, 2) layout at
+  4 × 8192 against the card's run of it (``argument_bytes`` and
+  ``dot_flops`` exact, the collectives the mesh phase's, the peak
+  beside ``max_memory_allocated``), and the ``stencil-suite`` j2d5pt
+  record's ``collective-permute`` count against ``run_sharded``'s
+  exchanges on the card.
 
 Every kernel's launch count is zeroed just before each run and read just
 after it, and must show every launch the run calls for and none of the
@@ -388,7 +409,7 @@ def main() -> int:
                 "stack frame")
 
     every = ["2d", "3d", "sharded", "campaign", "serve", "tune", "systems",
-             "lm", "train", "families", "mesh"]
+             "lm", "train", "families", "mesh", "dryrun"]
     phases = sys.argv[1:] or every
     check(set(phases) <= set(every), f"unknown phases {phases}; pass any "
           f"of {' '.join(every)}, or none for all")
@@ -399,7 +420,8 @@ def main() -> int:
            "systems": lambda: systems(dev),
            "lm": lambda: lm_serve(dev, held), "train": lambda: lm_train(dev),
            "families": lambda: families(dev, entries),
-           "mesh": lambda: mesh(dev, entries)}
+           "mesh": lambda: mesh(dev, entries),
+           "dryrun": lambda: dryrun(dev, entries)}
     for phase in every:
         if phase not in phases:
             continue
@@ -3436,6 +3458,399 @@ def mesh(dev, entries) -> None:
     for e in entries:
         if e["name"] in counts:
             e["launches_mesh"] = counts[e["name"]]
+
+
+
+# the dryrun phase: the shims' domains and depths (the paper's), the
+# stubs' and FSDP's shapes (the LM phase's), the dry run's cell
+SHIM_2D, SHIM_3D = ("j2d5pt", 12), ("j3d7pt", 17)
+SHIM_TOL = 1e-4                       # f32, a shim vs the planned program
+SHIM_REPS = 20
+
+
+def dryrun(dev, entries) -> None:
+    """The last Queue-1 paths on the card, counted where they launch: the
+    deprecated shims with ``plan=None`` (``ops.ebisu_stencil`` one
+    2-D sweep at the request-default tile; ``sweep.run_sweeps`` 17 steps
+    of j3d7pt at its bucketed plan, 8, 8 and 1), both boundary stubs,
+    ``sharding="fsdp"`` on the (2, 2) mesh of ``cuda:0`` × 4, and the dry
+    run (``launch/dryrun.py``, on meta shards) held to the card's runs of
+    the same programs.  The shims' launches join the stencil entries as
+    ``launches_shims``, the FSDP runs' the flash entries as
+    ``launches_fsdp``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.configs as C
+    from repro_torch.api import compile_stencil
+    from repro_torch.core import distributed as D
+    from repro_torch.core.device import Timer
+    from repro_torch.core.stencil_spec import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, sweep
+    from repro_torch.kernels import stencil2d as st
+    from repro_torch.kernels import stencil3d as st3
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import (ensure_fake_devices,
+                                         make_host_mesh, make_stencil_mesh)
+    from repro_torch.models import transformer
+    from repro_torch.models.parallel import MeshModel
+    from repro_torch.models.params import init_params
+    from repro_torch.stencils.data import init_domain
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import loss_fn, make_train_step
+
+    smi = smi_line()
+    devs = ensure_fake_devices(math.prod(MESH_SHAPE), dev)
+    n_shards = len(devs)
+    rows, counts = {}, {"stencil2d": {}, "stencil3d": {},
+                        "flash_attention": {}, "flash_attention_bwd": {}}
+    meta4 = make_host_mesh(*MESH_SHAPE, devices=[DR.META] * n_shards)
+
+    def gen(seed):
+        return torch.Generator(dev).manual_seed(seed)
+
+    def warned(call, name):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = call()
+        check(any(issubclass(w.category, DeprecationWarning)
+                  and name in str(w.message) for w in seen),
+              f"{name} did not warn")
+        return out
+
+    def kernel_ms(prog):
+        """One sweep of ``prog``'s kernel at its tile, on its padded
+        layout (CUDA events, median of ``SHIM_REPS``)."""
+        g, spec = prog.geometry(), prog.spec
+        xp = torch.zeros(g["padded"], device=dev)
+        buf = torch.empty_like(xp)
+        if spec.ndim == 2:
+            (bh, bw), (h, w) = g["block"], prog.shape
+
+            def fn():
+                st.ebisu2d_padded(xp, spec, prog.t, height=h, width=w,
+                                  bh=bh, bw=bw, out=buf)
+        else:
+            zc, ty, tx = g["block"]
+            z, y, x = prog.shape
+
+            def fn():
+                st3.ebisu3d_padded(xp, spec, prog.t, zdim=z, ydim=y,
+                                   xdim=x, zc=zc, ty=ty, tx=tx, out=buf)
+        return median_ms(fn, SHIM_REPS, 3), list(g["block"]), \
+            g.get("tile_request")
+
+    # ---- the shims with plan=None, counted -------------------------------
+    name2, t2 = SHIM_2D
+    spec2 = get(name2)
+    x2 = init_domain(spec2, spec2.domain, seed=0, device=dev)
+    planned2 = compile_stencil(spec2, spec2.domain, t=t2, device=dev)
+    want2 = planned2.apply(x2)
+    zero_counts()
+    got2 = warned(lambda: ops.ebisu_stencil(x2, spec2, t2),
+                  "ops.ebisu_stencil")
+    torch.cuda.synchronize()
+    n2 = st.ebisu2d_padded.launches
+    check(n2 == 1 and st3.ebisu3d_padded.launches == 0,
+          f"ops.ebisu_stencil launched ({n2}, "
+          f"{st3.ebisu3d_padded.launches}), not (1, 0)")
+    err2 = held(got2, want2, SHIM_TOL, f"ops.ebisu_stencil {name2} "
+                f"{spec2.domain} t={t2} plan=None vs the planned program")
+    counts["stencil2d"]["ops.ebisu_stencil " + name2] = n2
+    name3, steps3 = SHIM_3D
+    spec3 = get(name3)
+    x3 = init_domain(spec3, spec3.domain, seed=0, device=dev)
+    depth3 = sweep.plan_bucketed(spec3, spec3.domain).t
+    want3 = compile_stencil(spec3, spec3.domain, t=depth3,
+                            device=dev).run(x3, steps3)
+    zero_counts()
+    got3 = warned(lambda: sweep.run_sweeps(x3, spec3, steps3),
+                  "sweep.run_sweeps")
+    torch.cuda.synchronize()
+    n3 = st3.ebisu3d_padded.launches
+    n3_want = len(sweep.sweep_schedule(steps3, depth3))
+    check(n3 == n3_want and st.ebisu2d_padded.launches == 0,
+          f"sweep.run_sweeps launched ({st.ebisu2d_padded.launches}, {n3}),"
+          f" not (0, {n3_want})")
+    err3 = held(got3, want3, SHIM_TOL, f"sweep.run_sweeps {name3} "
+                f"{spec3.domain} {steps3} steps plan=None vs the planned "
+                "program")
+    counts["stencil3d"]["sweep.run_sweeps " + name3] = n3
+    print(f"[main path dryrun] shims: ops.ebisu_stencil {n2} stencil2d "
+          f"launch; sweep.run_sweeps {n3} stencil3d launches (depth "
+          f"{depth3})", flush=True)
+    del got2, want2, got3, want3
+    tiles = {}
+    for spec, x, depth in ((spec2, x2, t2), (spec3, x3, depth3)):
+        req = compile_stencil(spec, spec.domain, t=depth, plan=None,
+                              device=dev)
+        req_ms, req_tile, request = kernel_ms(req)
+        plan_ms, plan_tile, _ = kernel_ms(compile_stencil(
+            spec, spec.domain, t=depth, device=dev))
+        tiles[f"{spec.name} t={depth}"] = dict(
+            request_tile=req_tile, request_ms=req_ms, tile_request=request,
+            planned_tile=plan_tile, planned_ms=plan_ms,
+            ratio=req_ms / plan_ms)
+    rows["shims"] = dict(max_abs_err={name2: err2, name3: err3},
+                         launches={"stencil2d": n2, "stencil3d": n3},
+                         kernel_ms=tiles, reps=SHIM_REPS, card=smi)
+    print("[dryrun shims] " + json.dumps(rows["shims"]), flush=True)
+    del x2, x3
+    torch.cuda.empty_cache()
+
+    # ---- the boundary stubs ----------------------------------------------
+    zero_counts()
+    stub = serve.run(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                     max_new=4, reduced=False, seed=0, repeats=2,
+                     device=dev, attention_impl="boundary_stub")
+    check(fa.flash_attention_fwd.launches == 0
+          and stub.kernel_launches_per_prefill == 0,
+          "the attention boundary stub launched the flash kernel")
+    check(tuple(stub.tokens.shape) == (LM_BATCH, 4) and int(
+        stub.tokens.max()) < C.get_config(LM_ARCH).vocab, "stub tokens")
+    lm = next((e["lm"] for e in entries if e["name"] == "flash_attention"
+               and "lm" in e), None)
+    if lm is None:          # the LM phase did not run: serve with the kernel
+        flash = serve.run(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                          max_new=4, reduced=False, seed=0, repeats=2,
+                          device=dev, attention_impl="flash_pallas")
+        lm = dict(prefill_ms=flash.prefill_ms, peak_gb=flash.peak_bytes
+                  / 1e9, source="this phase")
+        del flash
+    stubs = {"attention": dict(
+        arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT,
+        stub_prefill_ms=stub.prefill_ms, flash_prefill_ms=lm["prefill_ms"],
+        flash_prefill_from=lm.get("source", "the lm phase"),
+        stub_peak_gb=stub.peak_bytes / 1e9, flash_launches=0)}
+    del stub
+    scan = {}
+    for impl in ("chunked_jnp", "boundary_stub"):
+        cfg = dataclasses.replace(C.get_config(SSM_ARCH), ssm_impl=impl)
+        model = init_params(transformer.build_model(cfg, dev), gen(0))
+        toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                             generator=gen(1), device=dev)
+        logits, cache = transformer.prefill(cfg, model, {"tokens": toks},
+                                            LM_PROMPT + 8)
+        check(bool(torch.isfinite(logits).all()), f"{SSM_ARCH} {impl} "
+              "logits")
+        if impl == "boundary_stub":
+            check(not any(bool(torch.any(c["state"]))
+                          for c in cache["ssm"]),
+                  "the SSM stub left a non-zero state")
+        del logits, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = median_ms(lambda: transformer.prefill(
+            cfg, model, {"tokens": toks}, LM_PROMPT + 8), 3, 0)
+        scan[impl] = dict(prefill_ms=ms, peak_gb=torch.cuda
+                          .max_memory_allocated(dev) / 1e9)
+        del model, toks
+        torch.cuda.empty_cache()
+    stubs["ssm"] = dict(arch=SSM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT,
+                        **{k + "_" + m: v for k, r in scan.items()
+                           for m, v in r.items()})
+    rows["stubs"] = dict(stubs, card=smi)
+    print("[dryrun stubs] " + json.dumps(rows["stubs"]), flush=True)
+
+    # ---- sharding="fsdp" on the (2, 2) mesh -------------------------------
+    def predicted(cfg, kind, b, s):
+        """The collectives of ``cfg``'s ``kind`` step on meta shards (its
+        attention the chunked path: the kernel runs on the card only, and
+        the collectives do not depend on it)."""
+        DR.lm_record(dataclasses.replace(cfg, attention_impl="flash_jnp"),
+                     kind, b, s, meta4)
+        return D.collective_counts()
+
+    fsdp = {}
+    f32 = dict(n_layers=2, activ_dtype=torch.float32,
+               param_dtype=torch.float32, attention_impl="flash_pallas",
+               sharding="fsdp")
+    c1 = dataclasses.replace(C.get_config(LM_ARCH), **f32)
+    b, s = MESH_CHECK_BATCH, MESH_CHECK_SEQ
+    model = init_params(transformer.build_model(c1, dev), gen(0))
+    mesh_ = lm_mesh(devs)
+    cm = c1.with_mesh(mesh_)
+    mm = MeshModel(cm, mesh_, model)
+    toks = torch.randint(0, c1.vocab, (b, s), device=dev, generator=gen(1))
+    want_l, _ = transformer.prefill(c1, model, {"tokens": toks}, s + 8)
+    zero_counts()
+    D.reset_collectives()
+    got_l, _ = transformer.prefill(cm, mm, {"tokens": toks}, s + 8)
+    coll = D.collective_counts()
+    launches = fa.flash_attention_fwd.launches
+    check(launches == c1.n_layers * n_shards, f"fsdp f32 prefill: "
+          f"{launches} flash launches, not {c1.n_layers * n_shards}")
+    want_coll = predicted(c1, "prefill", b, s)
+    check(coll == want_coll, f"fsdp f32 prefill collectives {coll}, not "
+          f"{want_coll}")
+    fsdp["f32_prefill_logits"] = held(
+        got_l, want_l, LM_WHOLE_PATH_TOL, f"fsdp {LM_ARCH} f32 depth 2 "
+        f"B{b} S{s}: last-position logits, (2, 2) vs unsharded")
+    batch = {"tokens": toks, "labels": toks}
+    ocfg = opt.OptConfig(lr=TRAIN_CHECK_LR, warmup=1, total_steps=1,
+                         schedule=c1.schedule)
+    _, _, m_want = make_train_step(c1, ocfg)(model, opt.init_state(model),
+                                             batch)
+    _, _, m_got = make_train_step(cm, ocfg)(mm, opt.init_state(mm), batch)
+    loss_err = abs(float(m_got["loss"]) - float(m_want["loss"]))
+    check(loss_err < TRAIN_LOSS_TOL, f"fsdp f32 loss {float(m_got['loss'])}"
+          f" vs {float(m_want['loss'])}")
+    got_p = mm.state_dict(dev)
+    perr = max(float((got_p[n] - p.detach()).abs().max())
+               for n, p in model.named_parameters())
+    check(perr < TRAIN_PARAM_TOL, f"fsdp f32 params after one AdamW step: "
+          f"{perr:.3e}")
+    fsdp.update(f32_loss_err=loss_err, f32_param_err=perr)
+    print(f"[check] fsdp {LM_ARCH} f32 depth 2 B{b} S{s} train step: loss "
+          f"|err| {loss_err:.3e} (< {TRAIN_LOSS_TOL:g}); parameters after "
+          f"one AdamW step max|err| {perr:.3e} (< {TRAIN_PARAM_TOL:g})",
+          flush=True)
+    del model, mm, got_p, want_l, got_l
+    torch.cuda.empty_cache()
+    # bf16 at full width: prefill and train steps, counted
+    cfg = dataclasses.replace(C.get_config(LM_ARCH),
+                              attention_impl="flash_pallas", sharding="fsdp")
+    cm = cfg.with_mesh(mesh_)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mm = MeshModel(cm, mesh_, init_params(transformer.build_model(cm, dev),
+                                          gen(0)))
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                      generator=gen(1), device=dev)}
+    transformer.prefill(cm, mm, prompt, LM_PROMPT + 8)      # warm-up
+    zero_counts()
+    D.reset_collectives()
+    with Timer(dev) as t:
+        transformer.prefill(cm, mm, prompt, LM_PROMPT + 8)
+    coll = D.collective_counts()
+    launches = fa.flash_attention_fwd.launches
+    want = cfg.n_layers * n_shards
+    check(launches == want, f"fsdp prefill: {launches} flash launches, "
+          f"not {want}")
+    want_coll = predicted(cfg, "prefill", LM_BATCH, LM_PROMPT)
+    check(coll == want_coll, f"fsdp prefill collectives {coll}, not "
+          f"{want_coll}")
+    counts["flash_attention"][LM_ARCH + " fsdp prefill"] = launches
+    fsdp.update(prefill_ms=t.ms, prefill_collectives=coll,
+                prefill_launches=launches)
+    ocfg = opt.OptConfig(schedule=cfg.schedule)
+    state = opt.init_state(mm)
+    step = make_train_step(cm, ocfg)
+    tb = {"tokens": prompt["tokens"], "labels": prompt["tokens"]}
+    step(mm, state, tb)                                      # warm-up
+    zero_counts()
+    D.reset_collectives()
+    with Timer(dev) as t:
+        _, state, metrics = step(mm, state, tb)
+    coll = D.collective_counts()
+    fwd = fa.flash_attention_fwd.launches
+    dq_n = fa.flash_attention_bwd_dq.launches
+    dkdv_n = fa.flash_attention_bwd_dkdv.launches
+    per = cfg.n_layers * n_shards
+    check((fwd, dq_n, dkdv_n) == (2 * per, per, per), f"fsdp train step "
+          f"launched ({fwd}, {dq_n}, {dkdv_n}), not ({2 * per}, {per}, "
+          f"{per})")
+    # the collectives do not depend on the sequence under fsdp (no split
+    # head, one loss psum): predicted on meta shards at 1024 positions
+    want_coll = predicted(cfg, "train", LM_BATCH, 1024)
+    check(coll == want_coll, f"fsdp train collectives {coll}, not "
+          f"{want_coll}")
+    check(math.isfinite(float(metrics["loss"])), "fsdp train loss")
+    counts["flash_attention"][LM_ARCH + " fsdp train"] = fwd
+    counts["flash_attention_bwd"][LM_ARCH + " fsdp train"] = dkdv_n
+    fsdp.update(step_ms=t.ms, step_tokens=LM_BATCH * LM_PROMPT,
+                step_collectives=coll, step_launches=[fwd, dq_n, dkdv_n],
+                loss=float(metrics["loss"]),
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    rows["fsdp"] = dict(fsdp, arch=LM_ARCH, mesh=list(MESH_SHAPE),
+                        batch=LM_BATCH, seq=LM_PROMPT, dtype="bfloat16",
+                        card=smi)
+    print("[dryrun fsdp] " + json.dumps(rows["fsdp"]), flush=True)
+    del mm, state, step, prompt, tb
+    torch.cuda.empty_cache()
+
+    # ---- the dry run's record against the card's run ----------------------
+    cfg = C.get_config(LM_ARCH)          # flash_jnp: the dry run's attention
+    rec = DR.lm_record(cfg, "prefill", LM_BATCH, LM_PROMPT, meta4)
+    meta_coll = D.collective_counts()
+    cm = cfg.with_mesh(mesh_)
+    mm = MeshModel(cm, mesh_, init_params(transformer.build_model(cm, dev),
+                                          gen(0)))
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                                      generator=gen(1), device=dev)}
+    arg_bytes = (sum(p.numel() * p.element_size()
+                     for p in mm.shards.flat[0].parameters())
+                 + LM_BATCH // MESH_SHAPE[0] * LM_PROMPT * 4)
+    check(rec["memory"]["argument_bytes"] == arg_bytes, f"dry run argument "
+          f"bytes {rec['memory']['argument_bytes']}, the card's shard and "
+          f"rows {arg_bytes}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    D.reset_collectives()
+    with FlopCounterMode(display=False) as fc:
+        logits, _ = transformer.prefill(cm, mm, prompt, LM_PROMPT)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    card_coll = D.collective_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(bool(torch.isfinite(logits).all()), "dry-run check logits")
+    check(card_flops == rec["hlo"]["dot_flops"] * n_shards, f"dry run "
+          f"dot_flops {rec['hlo']['dot_flops']} × {n_shards} shards, "
+          f"FlopCounterMode on the card {card_flops}")
+    check(card_coll == meta_coll == mesh_prefill_collectives(cfg, devs),
+          f"collectives: card {card_coll}, dry run {meta_coll}, the mesh "
+          f"phase's {mesh_prefill_collectives(cfg, devs)}")
+    rows["record"] = dict(
+        arch=LM_ARCH, kind="prefill", mesh=list(MESH_SHAPE), batch=LM_BATCH,
+        seq=LM_PROMPT, argument_bytes=arg_bytes,
+        dot_flops_per_device=rec["hlo"]["dot_flops"],
+        card_flop_counter_total=card_flops, collectives=card_coll,
+        peak_per_device=rec["memory"]["peak_per_device"],
+        card_peak_above_arguments=peak,
+        ratio_dry_run_peak_to_card=rec["memory"]["peak_per_device"]
+        * n_shards / (peak + n_shards * arg_bytes),
+        dry_run_s=rec["compile_s"], useful_flops_ratio=rec[
+            "useful_flops_ratio"], terms=rec["terms"], card=smi)
+    print("[dryrun record] " + json.dumps(rows["record"]), flush=True)
+    del mm, prompt, logits
+    torch.cuda.empty_cache()
+
+    # ---- the stencil-suite record's exchanges against run_sharded ---------
+    srec = DR.run_stencil_cell(name2, meta4)
+    dom = tuple(srec["domain"])
+    check(dom == spec2.domain, f"stencil-suite {name2} domain {dom}")
+    prog = compile_stencil(spec2, dom, t=srec["t_block"], mesh=
+                           make_stencil_mesh(MESH_SHAPE, devices=devs))
+    x = init_domain(spec2, dom, seed=0, device=dev)
+    zero_counts()
+    y = prog.run_sharded(x, srec["t_total"])
+    torch.cuda.synchronize()
+    calls = D.ppermute.calls
+    want_calls = srec["hlo"]["coll_count"]["collective-permute"]
+    check(calls == want_calls, f"run_sharded made {calls} exchanges, the "
+          f"dry run counts {want_calls}")
+    check(bool(torch.isfinite(y).all()), "stencil-suite run_sharded")
+    rows["stencil_suite"] = dict(stencil=name2, domain=list(dom),
+                                 t_block=srec["t_block"],
+                                 t_total=srec["t_total"],
+                                 collective_permute=want_calls,
+                                 ppermute_calls=calls, card=smi)
+    print("[dryrun stencil-suite] " + json.dumps(rows["stencil_suite"]),
+          flush=True)
+    del prog, x, y
+    torch.cuda.empty_cache()
+    print("[dryrun] " + json.dumps(dict(launches=counts, card=smi)),
+          flush=True)
+    for e in entries:
+        if e["name"] in ("stencil2d", "stencil3d"):
+            e["launches_shims"] = counts[e["name"]]
+        elif e["name"] in counts:
+            e["launches_fsdp"] = counts[e["name"]]
 
 
 if __name__ == "__main__":

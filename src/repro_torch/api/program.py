@@ -56,15 +56,18 @@ the tile the sweeps launch, in 2-D and 3-D alike:
 Programs run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every sweep takes the kernel's plain version.
 Both kernels build a library for every tap set ``validate_spec``
-accepts.  Not ported yet, and refused with the ROADMAP item that brings
-it: ``plan=None``, the legacy request-default tiles of the deprecated
-shims.
+accepts.  ``plan=None`` compiles the deprecated shims' request-default
+tiles (``DEFAULT_*``, :class:`TileRequest`) in place of a plan; the
+shims themselves (``kernels/ops.py``, ``kernels/sweep.py``) warn at
+call time (:func:`deprecated_entry`) and delegate here.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import threading
+import warnings
 from collections import OrderedDict
 
 import torch
@@ -72,13 +75,15 @@ import torch
 from repro_torch.api.boundary import ZERO, Boundary
 from repro_torch.core import roofline as rl
 from repro_torch.core.device import resolve_device
-from repro_torch.core.planner import (KERNEL_THREADS_3D, MAX_DEPTH_3D,
-                                      THREADS, EbisuPlan, axis_reach,
-                                      fit_tile_2d, fit_tile_3d,
-                                      kernel_smem_bytes_3d,
+from repro_torch.core.planner import (COL_ALIGN, KERNEL_THREADS_3D,
+                                      MAX_DEPTH_3D, ROW_ALIGN, THREADS,
+                                      EbisuPlan, axis_reach, fit_tile_2d,
+                                      fit_tile_3d, kernel_smem_bytes_3d,
                                       kernel_threads_3d, level_regions_3d,
                                       max_cells_per_thread,
-                                      plan as make_plan, smem_bytes_2d)
+                                      plan as make_plan,
+                                      planes_per_barrier, smem_bytes_2d,
+                                      smem_bytes_3d)
 from repro_torch.core.stencil_spec import (StencilSpec, lift_2d_to_3d,
                                            validate_spec)
 from repro_torch.kernels.stencil2d import (ebisu2d_padded, padded_shape_2d,
@@ -86,17 +91,82 @@ from repro_torch.kernels.stencil2d import (ebisu2d_padded, padded_shape_2d,
 from repro_torch.kernels.stencil3d import ebisu3d_padded, launch_geometry_3d
 from repro_torch.kernels.taps import ghost_extend, tap_sum
 
+# plan-less request-default tiles (the leading tile dimension the legacy
+# entry points asked for; the reference's names and values)
+DEFAULT_BH_2D = 128
+DEFAULT_ZC_3D = 16
+DEFAULT_ZC_STREAM_2D = 64
+
 _BUCKET = 64
 
-_LATER = {
-    "plan=None": "ROADMAP Queue 1 item 17 (the deprecated shims' "
-                 "request-default tiles)",
-}
+
+@dataclasses.dataclass(frozen=True)
+class TileRequest:
+    """The tiles of a program compiled with ``plan=None``: the leading
+    tile dimension is the request default (``DEFAULT_BH_2D`` rows in
+    2-D, ``DEFAULT_ZC_3D`` planes in 3-D, ``DEFAULT_ZC_STREAM_2D`` for
+    the lifted ``stream`` sweep), floored at the halo as the reference's
+    ``_tile_request`` floors it; the other dimensions follow the CUDA
+    kernels' own rules (:func:`request_tile_2d`, :func:`request_tile_3d`)."""
+    stream: bool = False
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet: {_LATER[what]}")
+def request_tile_2d(spec: StencilSpec, t: int, shape: tuple[int, int],
+                    hw: rl.HardwareModel, itemsize: int) -> dict:
+    """The 2-D tile of a request-default sweep: ``bh = max(DEFAULT_BH_2D,
+    halo)`` rows, and the widest multiple of 32 columns (capped at the
+    aligned domain) whose two haloed tiles fit the shared-memory limit.
+    Where none fits, ``bh`` is clipped (halved, in steps of 8 rows) until
+    one does, and ``clipped`` says so."""
+    h = spec.halo(t)
+    want = max(DEFAULT_BH_2D, h)
+    limit = int(hw.onchip_bytes)
+    bh = want
+    while True:
+        bw = _widest_columns(spec, t, bh, shape[1], limit, itemsize)
+        if bw >= COL_ALIGN:
+            break
+        if bh <= ROW_ALIGN:
+            raise ValueError(
+                f"{spec.name}: depth t={t} (halo {h}) leaves no CTA tile "
+                f"within the {limit} B shared-memory limit of {hw.name} at "
+                f"{itemsize}-byte cells, even at {bh} rows; lower t")
+        bh = max(ROW_ALIGN, bh // 2 // ROW_ALIGN * ROW_ALIGN)
+    return dict(default=DEFAULT_BH_2D, requested=want, block=(bh, bw),
+                clipped=None if bh == want else
+                f"bh {want} -> {bh}: two haloed {want}-row tiles of "
+                f"{COL_ALIGN} columns exceed the {limit} B shared-memory "
+                "limit")
+
+
+def _widest_columns(spec: StencilSpec, t: int, bh: int, width: int,
+                    limit: int, itemsize: int) -> int:
+    """The widest multiple of 32 columns, capped at the aligned
+    ``width``, whose two haloed ``bh``-row tiles fit ``limit`` bytes
+    (below 32: none fits)."""
+    h = spec.halo(t)
+    cols = limit // (2 * itemsize * (bh + 2 * h)) - 2 * h
+    return min(_round_up(width, COL_ALIGN), cols // COL_ALIGN * COL_ALIGN)
+
+
+def request_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                    hw: rl.HardwareModel, itemsize: int,
+                    stream: bool = False) -> dict:
+    """The 3-D tile of a request-default sweep: ``zc = max(DEFAULT_ZC_3D,
+    halo)`` planes (``DEFAULT_ZC_STREAM_2D`` for a lifted ``stream``
+    sweep), the in-plane tile ``(ty, tx)`` the planner fits within the
+    kernel's shared-memory, thread and register bounds.  The z chunk is
+    bound by none of them, so it is never clipped."""
+    default = DEFAULT_ZC_STREAM_2D if stream else DEFAULT_ZC_3D
+    zc = max(default, spec.halo(t))
+    fit = fit_tile_3d(spec, t, tuple(shape), hw, itemsize)
+    if fit is None:
+        raise ValueError(
+            f"{spec.name}: depth t={t} (halo {spec.halo(t)}) leaves no CTA "
+            f"tile within the {int(hw.onchip_bytes)} B shared-memory limit "
+            f"of {hw.name} at {itemsize}-byte cells; lower t")
+    return dict(default=default, requested=zc, block=(zc, fit[1], fit[2]),
+                clipped=None)
 
 
 # =========================================================== ProgramCache ==
@@ -294,25 +364,48 @@ def sweep_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
 
 def resolve_geometry(spec: StencilSpec, t: int, shape: tuple[int, ...], *,
                      hw: rl.HardwareModel = rl.H100, itemsize: int = 4,
-                     plan: EbisuPlan | None = None) -> dict:
+                     plan: EbisuPlan | TileRequest | None = None,
+                     mode: str = "fused") -> dict:
     """The launch a depth-``t`` sweep over ``shape`` executes: CTA tile,
     grid, halo, padded layout, threads, shared memory, the cells each
     CTA loads (``fetched_cells``) and writes (``body_cells``), and the
     stencil applications the launch computes, trapezoid included
     (``cell_updates``).  A 3-D spec (a ``stream`` program's lifted one
     among them) resolves the z-streaming launch, with the kernel's own
-    shared memory (``kernel_smem_bytes``) beside the planner's budget.
-    ``plan`` pins the tile at its depth, in 2-D and 3-D alike.
+    shared memory (``kernel_smem_bytes``) beside the planner's budget;
+    ``mode="stream"`` lifts a 2-D spec and ``(H, W)`` itself.  ``plan``
+    pins the tile at its depth, in 2-D and 3-D alike; a
+    :class:`TileRequest` resolves the request-default tile, and the
+    geometry's ``tile_request`` says what was asked and whether the
+    kernel's bounds clipped it.
 
         g = resolve_geometry(get("j2d5pt"), 4, (512, 512))
         g["grid"], g["block"], g["halo"]    # what apply() will launch
     """
+    if mode == "stream" and spec.ndim == 2:
+        spec, shape = lift_2d_to_3d(spec), (shape[0], 1, shape[1])
+    if isinstance(plan, TileRequest):
+        req = (request_tile_3d(spec, t, shape, hw, itemsize, plan.stream)
+               if spec.ndim == 3 else
+               request_tile_2d(spec, t, shape, hw, itemsize))
+        return dict(_launch_geometry(spec, t, shape, req["block"], itemsize),
+                    tile_request={k: req[k] for k in ("default", "requested",
+                                                      "clipped")})
     if spec.ndim == 3:
-        zc, ty, tx = sweep_tile_3d(spec, t, shape, hw, itemsize, plan)
+        block = sweep_tile_3d(spec, t, shape, hw, itemsize, plan)
+    else:
+        block = sweep_tile(spec, t, shape, hw, itemsize, plan)
+    return _launch_geometry(spec, t, shape, block, itemsize)
+
+
+def _launch_geometry(spec: StencilSpec, t: int, shape: tuple[int, ...],
+                     block: tuple, itemsize: int) -> dict:
+    """The geometry of a depth-``t`` sweep launched at tile ``block``."""
+    if spec.ndim == 3:
+        zc, ty, tx = block
         return launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
                                   itemsize=itemsize)
-    bh, bw = sweep_tile(spec, t, shape, hw, itemsize, plan)
-    bh, bw, halo = strip_geometry(spec, t, bh, bw)
+    bh, bw, halo = strip_geometry(spec, t, *block)
     hp, wp = padded_shape_2d(spec, t, bh, bw, *shape)
     ry, rx = axis_reach(spec, 0), axis_reach(spec, 1)
     grid = (hp // bh, wp // bw)
@@ -463,7 +556,9 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
 
 
 # ============================================================== programs ==
-def _plan_key(plan: EbisuPlan):
+def _plan_key(plan: EbisuPlan | None):
+    if plan is None:
+        return None
     return (plan.hw_name, plan.t, plan.block, plan.threads)
 
 
@@ -500,10 +595,13 @@ class StencilProgram:
         self.tuned = tuned               # mode="tuned" provenance, or None
 
     @property
-    def tile_plan(self) -> EbisuPlan | None:
+    def tile_plan(self) -> EbisuPlan | TileRequest | None:
         """The plan whose tile the sweeps launch at its depth: a pinned
         plan always; the analytic plan in 2-D only (a 3-D sweep re-fits
-        its tile for the exact shape, see :func:`sweep_tile_3d`)."""
+        its tile for the exact shape, see :func:`sweep_tile_3d`); the
+        request-default tiles without a plan (``plan=None``)."""
+        if self.plan is None:
+            return TileRequest(stream=self.mode == "stream")
         return (self.plan if self.pinned or self.kernel_spec.ndim == 2
                 else None)
 
@@ -751,7 +849,7 @@ class StencilProgram:
         """§5 practical-attainable estimate at depth ``t``: the plan's own
         prediction at its depth, the ideal-V roofline elsewhere."""
         depth = self.t if t is None else t
-        if depth == self.plan.t:
+        if self.plan is not None and depth == self.plan.t:
             return self.plan.pp
         return rl.attainable(self.spec, depth, self.hw, rst=True,
                              d_all=math.prod(self.shape))
@@ -824,8 +922,10 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     ``plan`` is normally derived (``"auto"``); an explicit ``EbisuPlan``
     is honored verbatim: its tile drives every sweep of its depth, in 2-D
     and 3-D, and a tile the kernel cannot take raises ``ValueError`` here,
-    naming the bound it breaks.  ``plan=None`` (the reference's legacy
-    request-default tiles) is not ported.
+    naming the bound it breaks.  ``plan=None`` runs the legacy
+    request-default tiles (:class:`TileRequest`; depth ``t``, default 1);
+    ``geometry()["tile_request"]`` says whether the kernel's bounds
+    clipped one.
 
     ``mode="tuned"`` resolves (t, tile, kernel family) from the
     persistent plan DB (``repro_torch.tuning``): a hit replays the
@@ -872,13 +972,11 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     if mode == "stream" and spec.ndim != 2:
         raise ValueError(f"mode='stream' lifts a 2-D stencil; {spec.name} "
                          "is 3-D and always streams z (mode='fused')")
-    if plan is None:
-        raise _not_ported("plan=None")
-    if not isinstance(plan, (str, EbisuPlan)):
-        raise ValueError(f"plan must be an EbisuPlan or 'auto'; got "
+    if plan is not None and not isinstance(plan, (str, EbisuPlan)):
+        raise ValueError(f"plan must be an EbisuPlan, None or 'auto'; got "
                          f"{type(plan).__name__}")
     if isinstance(plan, str) and plan != "auto":
-        raise ValueError(f"plan must be an EbisuPlan or 'auto'; got "
+        raise ValueError(f"plan must be an EbisuPlan, None or 'auto'; got "
                          f"{plan!r}")
     shape = tuple(int(n) for n in shape)
     if len(shape) != spec.ndim:
@@ -914,12 +1012,12 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
         # device is one big tile — plan for the shard it owns
         _sharded.validate_mesh_for(spec, shape, mesh, 1, boundary)
         plan_shape = _sharded.shard_extents(shape, mesh)
-    pinned = not isinstance(plan, str)
-    if not pinned:
+    pinned = isinstance(plan, EbisuPlan)
+    if isinstance(plan, str):
         plan = plan_bucketed(kernel_spec, kernel_view(spec, kernel_spec,
                                                       plan_shape)[0], hw,
                              itemsize)
-    depth = t if t is not None else plan.t
+    depth = t if t is not None else (plan.t if plan is not None else 1)
     if depth < 1:
         raise ValueError(f"temporal depth must be >= 1, got {depth}")
     boundary.validate_for(spec, t=depth)
@@ -938,3 +1036,107 @@ def compile_stencil(spec: StencilSpec, shape: tuple[int, ...], *,
     prog.geometry()     # refuse a depth or a pinned tile that cannot fit
     PROGRAM_CACHE.put(key, prog)
     return prog
+
+
+# ================================================ legacy entry points ==
+def deprecated_entry(name: str, replacement: str) -> None:
+    """One-per-call-site deprecation notice for the legacy entry points
+    (``kernels/ops.py``, ``kernels/sweep.py``), emitted strictly at call
+    time, never at import, so modules that merely import the legacy
+    names stay silent."""
+    warnings.warn(f"{name} is deprecated; use {replacement} "
+                  "(repro_torch.api) instead", DeprecationWarning,
+                  stacklevel=3)
+
+
+def sweep_once(x: torch.Tensor, spec: StencilSpec, t: int, *,
+               plan: EbisuPlan | None = None, mode: str = "fused",
+               interpret: bool = True, boundary: Boundary | None = None,
+               compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One temporally-blocked sweep of depth ``t`` on ``x``'s device: the
+    plan's tile (at its depth), or the request-default tile without one.
+    ``interpret`` is kept for the reference's signature: the port has no
+    interpret mode, and the tensor's device decides (a CPU tensor takes
+    the kernel's plain version, a CUDA tensor launches the kernel)."""
+    del interpret
+    prog = compile_stencil(spec, tuple(x.shape), dtype=x.dtype, t=t,
+                           plan=plan, mode=mode, boundary=boundary,
+                           compute_dtype=compute_dtype, device=x.device)
+    return prog.apply(x)
+
+
+def run_sweeps_padded(xp: torch.Tensor, spec: StencilSpec, total_t: int, *,
+                      t: int, height: int, width: int, bh: int,
+                      bw: int | None = None, mode: str = "fused",
+                      num_buffers: int | None = None,
+                      interpret: bool = True) -> torch.Tensor:
+    """The padded-layout sweep chain (2-D, zero Dirichlet), ``t |
+    total_t``: ``xp`` is the padded layout of a ``(bh, bw)`` tile,
+    ``padded_shape_2d(spec, t, bh, bw, height, width)``, in the compute
+    dtype, the domain at its origin.  ``bw`` defaults to the widest
+    column tile the kernel takes at ``bh`` rows (the reference's strips
+    are whole rows).  The sweeps ping-pong ``xp`` with one partner
+    buffer and return the one holding the result; do not rely on ``xp``
+    after the call.  ``mode`` (``fused`` or ``scratch``, one kernel),
+    ``num_buffers`` and ``interpret`` are kept for the reference's
+    signature."""
+    del num_buffers, interpret
+    if total_t % t:
+        raise ValueError(f"padded chaining needs a uniform sweep depth: "
+                         f"t={t} must divide total_t={total_t}")
+    if mode not in ("fused", "scratch"):
+        raise ValueError(f"run_sweeps_padded is the 2-D fused chain; got "
+                         f"mode={mode!r}")
+    if bw is None:
+        bw = _widest_columns(spec, t, bh, width, int(rl.hardware_for(
+            xp.device).onchip_bytes), xp.element_size())
+        if bw < COL_ALIGN:
+            raise ValueError(f"{spec.name}: no column tile fits {bh} rows "
+                             f"at t={t}; pass a smaller bh")
+    want = padded_shape_2d(spec, t, bh, bw, height, width)
+    if tuple(xp.shape) != want:
+        raise ValueError(f"run_sweeps_padded carry must have the padded "
+                         f"layout {want} of tile ({bh}, {bw}); got "
+                         f"{tuple(xp.shape)}")
+    buf = torch.empty_like(xp) if total_t else xp
+    for _ in range(total_t // t):
+        ebisu2d_padded(xp, spec=spec, t=t, height=height, width=width,
+                       bh=bh, bw=bw, out=buf)
+        xp, buf = buf, xp
+    return xp
+
+
+def _sweep_tile_2d(spec: StencilSpec, t: int, shape: tuple[int, int],
+                   hw: rl.HardwareModel, plan: EbisuPlan,
+                   interpret: bool = False) -> int:
+    """The rows of the CTA tile a depth-``t`` 2-D sweep launches (the
+    plan's at its depth, else the §6.4 fit; :func:`sweep_tile`).  The
+    reference widens a strip to fill VMEM; the port's tile is bound by
+    shared memory, and ``interpret`` changes nothing."""
+    del interpret
+    return sweep_tile(spec, t, shape, hw, hw.s_cell, plan)[0]
+
+
+def _sweep_tile_3d(spec: StencilSpec, t: int, shape: tuple[int, int, int],
+                   hw: rl.HardwareModel, plan: EbisuPlan,
+                   interpret: bool = False
+                   ) -> tuple[int, int | None, int | None, int]:
+    """``(zc, ty, tx, B)`` of a depth-``t`` 3-D sweep: the port's CUDA
+    tile (the plan's at its depth, else the planner's fit), ``ty``/``tx``
+    ``None`` where an axis is untiled, and ``B``, the planes each time
+    level streams between two barriers (the reference's streaming batch).
+    A depth whose tile does not fit the ``smem_bytes_3d`` budget
+    raises."""
+    del interpret
+    try:
+        zc, ty, tx = sweep_tile_3d(spec, t, shape, hw, hw.s_cell,
+                                   plan if plan is not None and plan.t == t
+                                   else None)
+    except ValueError as e:
+        raise ValueError(f"{spec.name}: depth t={t} does not fit the "
+                         f"{hw.name} on-chip budget ({e})") from None
+    if smem_bytes_3d(spec, t, shape, ty, tx, hw.s_cell) > hw.onchip_bytes:
+        raise ValueError(f"{spec.name}: depth t={t} at tile ({ty}, {tx}) "
+                         f"does not fit the {hw.name} on-chip budget")
+    return (zc, ty if ty < shape[1] else None,
+            tx if tx < shape[2] else None, planes_per_barrier(spec.radius))

@@ -33,11 +33,6 @@ def register(cfg: "ArchConfig") -> "ArchConfig":
 
 
 def get_config(name: str) -> "ArchConfig":
-    if name == "stencil-suite" and name not in _REGISTRY:
-        raise NotImplementedError(
-            "the stencil-suite arch config is selected by the dry run, "
-            "which is not ported to repro_torch yet: ROADMAP Queue 1 item "
-            "16b (run the Table-2 stencils through compile_stencil)")
     return _REGISTRY[name]
 
 
@@ -153,7 +148,11 @@ class ArchConfig:
     def input_specs(self, shape_name: str) -> dict:
         """``(shape, dtype)`` of every model input of this cell."""
         info = SHAPES[shape_name]
-        s, b, kind = info["seq"], info["batch"], info["kind"]
+        return self.inputs_for(info["kind"], info["batch"], info["seq"])
+
+    def inputs_for(self, kind: str, b: int, s: int) -> dict:
+        """``input_specs`` of a ``kind`` cell (train, prefill, decode) at
+        any batch ``b`` and sequence ``s``."""
         i32 = torch.int32
         patches = ((b, self.vlm_patches, self.vlm_patch_dim),
                    self.activ_dtype)

@@ -43,7 +43,13 @@ copied to the device of the group's first member, combined there in
 mesh-index order (so the result does not depend on timing), and the
 result is copied back to every member, out of place, so autograd
 differentiates through it.  Each counts its calls, in ``.calls`` and by
-axis in ``.by_axis``.
+axis in ``.by_axis``, and by axis the bytes of one member's results in
+``.bytes_by_axis`` (:func:`ppermute`: in ``.result_bytes``, of the
+slab one position receives); :func:`in_collective` is true while one
+runs.  Over a mesh made by ``launch.mesh.representative`` (one position
+standing for all of a mesh's positions) each collective takes that
+position as every member of its group, so results have the whole
+mesh's shapes.
 """
 from __future__ import annotations
 
@@ -112,7 +118,10 @@ def unzip(arr: np.ndarray, n: int) -> tuple:
 # ============================================================ collectives ==
 def _groups(mesh, ax) -> list[list[tuple]]:
     """The mesh positions grouped by their coordinates off ``ax``, each
-    group in index order over ``ax``."""
+    group in index order over ``ax`` (over a representative mesh: its
+    one position, once for each member)."""
+    if getattr(mesh, "stands_for", None) is not None:
+        return [[(0,) * mesh.devices.ndim] * _axis_size(mesh, ax)]
     names = set(_axes(ax))
     groups: dict[tuple, list] = {}
     for c in np.ndindex(*mesh.devices.shape):
@@ -123,73 +132,105 @@ def _groups(mesh, ax) -> list[list[tuple]]:
             for g in groups.values()]
 
 
-def _count(fn, ax) -> None:
+_ACTIVE = [0]
+
+
+def in_collective() -> bool:
+    """Whether a collective's copies and reductions are running now."""
+    return _ACTIVE[0] > 0
+
+
+def _count(fn, ax, out: np.ndarray) -> np.ndarray:
     fn.calls += 1
     key = _axes(ax)
     fn.by_axis[key] = fn.by_axis.get(key, 0) + 1
+    first = out.flat[0]
+    fn.bytes_by_axis[key] = (fn.bytes_by_axis.get(key, 0)
+                             + first.numel() * first.element_size())
+    return out
+
+
+def _collective(body):
+    """Run ``body`` with :func:`in_collective` true."""
+    _ACTIVE[0] += 1
+    try:
+        return body()
+    finally:
+        _ACTIVE[0] -= 1
 
 
 def _reduce(shards: np.ndarray, ax, mesh, op) -> np.ndarray:
-    out = np.empty(shards.shape, dtype=object)
-    for group in _groups(mesh, ax):
-        root = mesh.devices[group[0]]
-        acc = shards[group[0]]
-        for c in group[1:]:
-            acc = op(acc, shards[c].to(root))
-        for c in group:
-            out[c] = (acc if c == group[0]
-                      else acc.to(mesh.devices[c], copy=True))
-    return out
+    def body():
+        out = np.empty(shards.shape, dtype=object)
+        for group in _groups(mesh, ax):
+            root = mesh.devices[group[0]]
+            acc = shards[group[0]]
+            for c in group[1:]:
+                acc = op(acc, shards[c].to(root))
+            for c in group:
+                out[c] = (acc if c == group[0]
+                          else acc.to(mesh.devices[c], copy=True))
+        return out
+    return _collective(body)
 
 
 def psum(shards: np.ndarray, ax, mesh) -> np.ndarray:
     """``lax.psum`` over mesh axis ``ax`` (a name or a tuple of names):
     every member of a group gets the sum of the group's shards, added in
     index order on the first member's device."""
-    _count(psum, ax)
-    return _reduce(shards, ax, mesh, torch.add)
+    return _count(psum, ax, _reduce(shards, ax, mesh, torch.add))
 
 
 def pmean(shards: np.ndarray, ax, mesh) -> np.ndarray:
     """``lax.pmean``: :func:`psum` divided by the axis size."""
-    _count(pmean, ax)
     n = _axis_size(mesh, ax)
-    return smap(lambda t: t / n, _reduce(shards, ax, mesh, torch.add))
+    out = _reduce(shards, ax, mesh, torch.add)
+    return _count(pmean, ax, _collective(lambda: smap(lambda t: t / n,
+                                                      out)))
 
 
 def pmax(shards: np.ndarray, ax, mesh) -> np.ndarray:
     """``lax.pmax``: the elementwise maximum over the group."""
-    _count(pmax, ax)
-    return _reduce(shards, ax, mesh, torch.maximum)
+    return _count(pmax, ax, _reduce(shards, ax, mesh, torch.maximum))
 
 
 def all_gather(shards: np.ndarray, ax, mesh, dim: int) -> np.ndarray:
     """``lax.all_gather(..., tiled=True)``: every member gets the group's
     shards concatenated along ``dim`` in index order."""
-    _count(all_gather, ax)
-    out = np.empty(shards.shape, dtype=object)
-    for group in _groups(mesh, ax):
-        for c in group:
-            dev = mesh.devices[c]
-            out[c] = torch.cat([shards[m].to(dev) for m in group], dim=dim)
-    return out
+    def body():
+        out = np.empty(shards.shape, dtype=object)
+        for group in _groups(mesh, ax):
+            for c in group:
+                dev = mesh.devices[c]
+                out[c] = torch.cat([shards[m].to(dev) for m in group],
+                                   dim=dim)
+        return out
+    return _count(all_gather, ax, _collective(body))
 
 
 COLLECTIVES = (psum, pmean, pmax, all_gather)
 for _fn in COLLECTIVES:
-    _fn.calls, _fn.by_axis = 0, {}
+    _fn.calls, _fn.by_axis, _fn.bytes_by_axis = 0, {}, {}
 
 
 def reset_collectives() -> None:
     """Every collective's counts to 0."""
     for fn in COLLECTIVES:
-        fn.calls, fn.by_axis = 0, {}
+        fn.calls, fn.by_axis, fn.bytes_by_axis = 0, {}, {}
 
 
 def collective_counts() -> dict:
     """``{name: {axes: calls}}`` of the collectives called since the last
     :func:`reset_collectives`, axes as a ``+``-joined string."""
     return {fn.__name__: {"+".join(k): n for k, n in fn.by_axis.items()}
+            for fn in COLLECTIVES if fn.calls}
+
+
+def collective_bytes() -> dict:
+    """``{name: {axes: bytes}}``: the bytes of one member's results of
+    the collectives counted by :func:`collective_counts`."""
+    return {fn.__name__: {"+".join(k): n
+                          for k, n in fn.bytes_by_axis.items()}
             for fn in COLLECTIVES if fn.calls}
 
 
@@ -202,15 +243,22 @@ def ppermute(slabs: dict, pairs: Sequence[tuple], mesh) -> dict:
     ``lax.ppermute`` leaves them zero.  Adds one to ``ppermute.calls``.
     """
     ppermute.calls += 1
-    out = {}
-    for src, dst in pairs:
-        s = slabs[src]
-        out[dst] = torch.empty(s.shape, dtype=s.dtype,
-                               device=mesh.devices[dst]).copy_(s)
+
+    def body():
+        out = {}
+        for src, dst in pairs:
+            s = slabs[src]
+            out[dst] = torch.empty(s.shape, dtype=s.dtype,
+                                   device=mesh.devices[dst]).copy_(s)
+        return out
+    out = _collective(body)
+    if out:
+        first = next(iter(out.values()))
+        ppermute.result_bytes += first.numel() * first.element_size()
     return out
 
 
-ppermute.calls = 0
+ppermute.calls = ppermute.result_bytes = 0
 
 
 def _pad_axis(v: torch.Tensor, dim: int, h: int,

@@ -17,8 +17,11 @@ numbers, not measurements: ``b_sm`` is derived from 128 bytes per clock
 per SM at the 1.98 GHz boost clock, and ``t_dsync`` (here: the fixed cost
 of one kernel launch, which the port pays once per sweep) is an estimate.
 :func:`hardware_for` replaces the SM count, the per-block shared-memory
-limit and the L2 size with what ``torch.cuda.get_device_properties``
-reports when a card is present (an H100 PCIe differs from the SXM part).
+limit, the L2 size and the memory capacity with what
+``torch.cuda.get_device_properties`` reports when a card is present (an
+H100 PCIe differs from the SXM part).  ``hbm_bytes`` and ``mxu_flops``
+(the dense bf16 tensor-core peak) are the LM dry run's terms, under the
+reference's names.
 """
 from __future__ import annotations
 
@@ -44,6 +47,17 @@ class HardwareModel:
     # --- interconnect, for the halo exchange of sharded runs ---
     b_ici: float = 0.0   # per-link bandwidth between devices, B/s
     ici_links: int = 0   # links per device usable for halo exchange
+    # --- the LM dry run's terms (the reference's names) ---
+    hbm_bytes: float = 0.0        # device memory capacity, B
+    mxu_flops: float = 0.0        # dense bf16 matmul peak (tensor cores)
+
+
+# NVIDIA H100 SXM5 datasheet: 989 TFLOP/s dense bf16 on the tensor cores
+# (a datasheet number, not a measurement; it assumes the 700 W limit).
+H100_BF16_TENSOR_FLOPS = 989e12
+# NVIDIA H100 SXM5 datasheet: 80 GB of HBM3 (a datasheet number;
+# ``hardware_for`` reads the card's own capacity where there is one).
+H100_HBM_BYTES = 80e9
 
 
 # NVIDIA H100 SXM5 datasheet: 3.35 TB/s HBM3, 67 / 34 TFLOP/s fp32 / fp64
@@ -63,13 +77,16 @@ H100 = HardwareModel(
     l2_bytes=50e6,
     b_ici=50e9,               # datasheet: 900 GB/s over 18 NVLink links
     ici_links=18,
+    hbm_bytes=H100_HBM_BYTES,
+    mxu_flops=H100_BF16_TENSOR_FLOPS,
 )
 
 
 def hardware_for(device) -> HardwareModel:
     """The H100 model for ``device``: datasheet constants, with the SM
-    count, per-block opt-in shared memory and L2 size read from the card
-    when ``device`` is a CUDA device (CPU devices get the datasheet model,
+    count, per-block opt-in shared memory, L2 size and device memory
+    capacity (``total_memory``) read from the card when ``device`` is a
+    CUDA device (CPU devices get the datasheet model,
     since the CPU path runs no kernel that the model could size)."""
     import torch
 
@@ -83,7 +100,8 @@ def hardware_for(device) -> HardwareModel:
     sms = int(props.multi_processor_count)
     return dataclasses.replace(
         H100, name=f"cuda:{props.name}:{sms}sm:{smem}B",
-        onchip_bytes=smem, l2_bytes=l2, sm_count=sms)
+        onchip_bytes=smem, l2_bytes=l2, sm_count=sms,
+        hbm_bytes=float(props.total_memory))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,10 +239,6 @@ def spec_cost_summary(spec: StencilSpec, hw: HardwareModel = H100) -> dict:
 
 
 # ------------------------------------------------------------- attention --
-# NVIDIA H100 SXM5 datasheet: 989 TFLOP/s dense bf16 on the tensor cores
-# (a datasheet number, not a measurement; it assumes the 700 W limit).
-H100_BF16_TENSOR_FLOPS = 989e12
-
 
 def attention_hbm_bytes(b, s, sk, h, kv, hd, bytes_per_el=2) -> int:
     """Kernel device-memory traffic of one forward call: q, k, v read once

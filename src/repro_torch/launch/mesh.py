@@ -39,7 +39,7 @@ class Mesh:
     """Devices laid out in a named grid, as ``jax.sharding.Mesh``:
     ``axis_names``, ``shape`` (axis name → size), ``size`` and
     ``devices`` (a numpy object array of ``torch.device`` in the mesh's
-    shape).
+    shape; ``stands_for`` is ``None``, see :func:`representative`).
 
         mesh = Mesh(np.array([torch.device("cpu")] * 4).reshape(2, 2),
                     ("shard0", "shard1"))
@@ -56,6 +56,7 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, devices.shape))
         self.size = int(devices.size)
+        self.stands_for = None
 
 
 def device_summary(devices) -> str:
@@ -161,6 +162,27 @@ def lm_mesh(n_data: int, n_model: int, device) -> Mesh | None:
         return None
     return make_host_mesh(n_data, n_model,
                           devices=ensure_fake_devices(n, device))
+
+
+def representative(mesh: Mesh) -> Mesh:
+    """One position standing for every position of ``mesh``, whose shards
+    all hold one local shape each (the LM executor's specs and the
+    stencil layouts split every dim evenly or not at all): axis names,
+    ``shape`` and ``size`` are ``mesh``'s, ``devices`` holds its first
+    device alone, and ``stands_for`` is ``mesh``.  The collectives of
+    ``core/distributed.py`` take that position as every member of its
+    group, so their results have the whole mesh's shapes: a program
+    traced over it runs what each device of ``mesh`` runs, once (the
+    dry run, ``launch/dryrun.py``).
+
+        rep = representative(make_production_mesh(devices=["meta"] * 256))
+        rep.devices.shape, rep.shape        # (1, 1), {"data": 16, ...}
+    """
+    devices = np.empty((1,) * mesh.devices.ndim, dtype=object)
+    devices.flat[0] = mesh.devices.flat[0]
+    rep = Mesh(devices, mesh.axis_names)
+    rep.shape, rep.size, rep.stands_for = dict(mesh.shape), mesh.size, mesh
+    return rep
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -91,7 +91,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     if mesh is not None:
         cfg = cfg.with_mesh(mesh)
         mesh_defs(cfg, mesh)     # a refused layout fails before init
-    attention_program_for(cfg)   # a bad attention_impl fails before init
+    if cfg.attention_impl != "boundary_stub":    # inlined, not compiled
+        attention_program_for(cfg)   # a bad attention_impl fails before init
     horizon = schedule_steps or steps   # keep LR schedule invariant across
     ocfg = opt.OptConfig(lr=lr,          # crash-restart runs of one job
                          warmup=min(20, horizon // 10 + 1),

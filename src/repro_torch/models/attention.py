@@ -57,21 +57,27 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_chunk=512,
     if s % q_chunk or sk % kv_chunk or s <= q_chunk:
         return dense_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset)
-    scale = 1.0 / math.sqrt(hd)
     q5 = q.reshape(b, s // q_chunk, q_chunk, kv, g, hd).float()
     kf, vf = k.float(), v.float()
-    outs = []
-    for iq in range(s // q_chunk):
-        qpos = (iq * q_chunk + torch.arange(q_chunk, device=q.device)
-                + q_offset)
-        acc, _, l = online_softmax(q5[:, iq], qpos, kf, vf,
-                                   kv_chunk=kv_chunk, causal=causal,
-                                   window=window, scale=scale)
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        # (b, kv, g, qc, hd) -> (b, qc, kv, g, hd)
-        outs.append(out.permute(0, 3, 1, 2, 4))
-    out = torch.stack(outs, dim=1).reshape(b, s, h, hd)
-    return out.to(q.dtype)
+    outs = [q_block(q5, iq, kf, vf, kv_chunk=kv_chunk, causal=causal,
+                    window=window, q_offset=q_offset)
+            for iq in range(s // q_chunk)]
+    return torch.stack(outs, dim=1).reshape(b, s, h, hd).to(q.dtype)
+
+
+def q_block(q5, iq: int, kf, vf, *, kv_chunk: int, causal: bool,
+            window: int | None, q_offset: int = 0):
+    """Query block ``iq`` of :func:`flash_attention` against every key
+    chunk → ``(b, qc, kv, g, hd)`` float32."""
+    q_chunk, hd = q5.shape[2], q5.shape[-1]
+    qpos = (iq * q_chunk + torch.arange(q_chunk, device=q5.device)
+            + q_offset)
+    acc, _, l = online_softmax(q5[:, iq], qpos, kf, vf, kv_chunk=kv_chunk,
+                               causal=causal, window=window,
+                               scale=1.0 / math.sqrt(hd))
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    # (b, kv, g, qc, hd) -> (b, qc, kv, g, hd)
+    return out.permute(0, 3, 1, 2, 4)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, slot_pos=None,

@@ -37,8 +37,18 @@ Attention splits heads only when ``kv_heads`` divides over ``model``
 (otherwise every model shard computes every head), the SSM when
 ``ssm_heads`` does, the MoE its experts when ``n_experts_padded`` does,
 and the batch over the DP axes when it divides.  A mesh of size 1 runs
-the unsharded path.  ``sharding="fsdp"`` configs run only in the dry
-run and are refused here (ROADMAP Queue 1 item 16b).
+the unsharded path.
+
+``sharding="fsdp"`` (the reference's ``params.fsdp_transform`` specs:
+each leaf's largest dim that the whole mesh divides is split over every
+axis, the rest replicated; the batch over every axis) runs the same
+control flow with nothing split over ``model``: where the executor
+reads a layer's parameters (``_sub``), it ``all_gather``s each split
+leaf over its axes first (:meth:`MeshModel.gathered`), inside the
+layer's remat unit, so a backward gathers again.  Autograd sums every
+position's gradient of a gathered copy into the shard it came from
+(each shard's gradient reduced to its slice); ``replica_grads`` sums
+the replicated leaves' copies, as under ``tp``.
 """
 from __future__ import annotations
 
@@ -60,14 +70,6 @@ from repro_torch.models.params import (NamedSharding, OnMesh, ParamModule,
 
 
 # ================================================================ placement ==
-def _refuse_fsdp(cfg) -> None:
-    if cfg.sharding == "fsdp":
-        raise NotImplementedError(
-            "sharding='fsdp' runs only in the dry run, which is not ported "
-            "to repro_torch yet: ROADMAP Queue 1 item 16b (its specs are "
-            "params.fsdp_transform; use sharding='tp' on a mesh)")
-
-
 def _size(mesh, axes) -> int:
     return math.prod(mesh.shape.get(a, 1) for a in axes)
 
@@ -78,10 +80,11 @@ def mesh_defs(cfg, mesh):
     attention leaves unless ``kv_heads`` divides over it, from the SSM's
     split leaves unless ``ssm_heads`` does, and from the experts unless
     ``n_experts_padded`` does; then every axis that is absent from the
-    mesh or does not divide its dim dropped (replicated)."""
-    _refuse_fsdp(cfg)
+    mesh or does not divide its dim dropped (replicated).  Under
+    ``sharding="fsdp"`` no group drops ``model``: the specs are
+    ``fsdp_transform``'s."""
     nm = mesh.shape.get("model", 1)
-    keep_model = {
+    keep_model = {} if cfg.sharding == "fsdp" else {
         "attn": nm > 1 and cfg.kv_heads % nm == 0,
         "ssm": nm > 1 and cfg.ssm_heads and cfg.ssm_heads % nm == 0,
         "moe": nm > 1 and cfg.n_experts_padded % nm == 0,
@@ -132,13 +135,54 @@ class MeshModel(OnMesh):
         for c in np.ndindex(*self.shards.shape):
             self.shards[c] = ParamModule(local, dtype=cfg.param_dtype,
                                          device=mesh.devices[c])
+        self._leaves = None
         if state is not None:
             self.load_state_dict(state)
 
     def leaves(self) -> dict[str, np.ndarray]:
-        """Each parameter's shards (mesh-shaped), by name."""
-        per = smap(lambda m: dict(m.named_parameters()), self.shards)
-        return {n: smap(lambda d, n=n: d[n], per) for n in self.flat}
+        """Each parameter's shards (mesh-shaped), by name (the same
+        tensors on every call: updates are in place)."""
+        if self._leaves is None:
+            per = smap(lambda m: dict(m.named_parameters()), self.shards)
+            self._leaves = {n: smap(lambda d, n=n: d[n], per)
+                            for n in self.flat}
+        return self._leaves
+
+    def params(self) -> np.ndarray:
+        """What the executor reads parameters from: the shards, or under
+        ``sharding="fsdp"`` this model at every position, which
+        :func:`_sub` turns into the named part gathered whole."""
+        if self.cfg.sharding != "fsdp":
+            return self.shards
+        return smap(lambda _: self, self.shards)
+
+    def gathered(self, path: tuple) -> np.ndarray:
+        """FSDP: every position's parameters under ``path`` gathered
+        whole, one ``all_gather`` over its axes per split leaf: a leaf's
+        tensors, or a submodule's as nested dicts (``p["wq"]``)."""
+        prefix = ".".join(str(k) for k in path)
+        if prefix in self.flat:
+            return self._gather(prefix)
+        out = smap(lambda _: _Gathered(), self.shards)
+        for n in self.flat:
+            if not n.startswith(prefix + "."):
+                continue
+            full = self._gather(n)
+            *inner, leaf = n[len(prefix) + 1:].split(".")
+            for c in np.ndindex(*out.shape):
+                node = out[c]
+                for k in inner:
+                    node = node.setdefault(k, _Gathered())
+                node[leaf] = full[c]
+        return out
+
+    def _gather(self, name: str) -> np.ndarray:
+        t = self.leaves()[name]
+        for k, axes in self.shardings[name].dims(
+                self.flat[name].shape).items():
+            t = all_gather(t, axes if len(axes) > 1 else axes[0], self.mesh,
+                           dim=k)
+        return t
 
     @torch.no_grad()
     def load_state_dict(self, state) -> None:
@@ -178,6 +222,16 @@ class MeshModel(OnMesh):
         return decode_step(cfg, self, cache, tokens, pos)
 
 
+class _Gathered(dict):
+    """One position's parameters of a submodule gathered whole under FSDP;
+    reads like the ``ParamModule`` it stands for (``p["wq"]``,
+    ``p.defs`` naming its leaves)."""
+
+    @property
+    def defs(self) -> dict:
+        return {k: v for k, v in self.items() if isinstance(v, torch.Tensor)}
+
+
 def replica_grads(mm: MeshModel, grads: dict) -> dict:
     """The logical gradient of each leaf, in its shards: the copies'
     gradients summed (``psum``) over the axes the leaf is replicated on
@@ -194,8 +248,11 @@ def replica_grads(mm: MeshModel, grads: dict) -> dict:
 
 # ================================================================= helpers ==
 def dp_axes(cfg, mesh, batch: int):
-    """The axes the batch rows are split over (``None``: replicated)."""
-    dp = tuple(a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1)
+    """The axes the batch rows are split over (``None``: replicated): the
+    DP axes, every axis under ``sharding="fsdp"``."""
+    names = ("pod", "data", "model") if cfg.sharding == "fsdp" \
+        else ("pod", "data")
+    dp = tuple(a for a in names if mesh.shape.get(a, 1) > 1)
     n = _size(mesh, dp)
     if not dp or batch % n:
         return None
@@ -223,12 +280,28 @@ def gather_rows(arr: np.ndarray, mesh, dp) -> torch.Tensor:
 
 
 def _sub(ps, *path):
-    """Each position's submodule at ``path``."""
+    """Each position's submodule at ``path`` (gathered whole under
+    FSDP)."""
+    if isinstance(ps.flat[0], MeshModel):
+        return ps.flat[0].gathered(path)
+
     def get(p):
         for k in path:
             p = p[k]
         return p
     return smap(get, ps)
+
+
+def _outer(ps, cfg):
+    """Each position's parameters that ``transformer._inputs`` reads
+    (under FSDP only those, gathered whole)."""
+    if not isinstance(ps.flat[0], MeshModel):
+        return ps
+    names = (("mask_embed",) if cfg.family == "encoder"
+             else ("embed", "patch_proj") if cfg.family == "vlm"
+             else ("embed",))
+    parts = [_sub(ps, n) for n in names]
+    return smap(lambda *vs: _Gathered(zip(names, vs)), *parts)
 
 
 def _model_index(mesh) -> np.ndarray:
@@ -321,8 +394,9 @@ def _full_d(xs, cfg, mesh):
 
 
 def _inputs(cfg, ps, bs, mesh):
-    return _full_d(smap(lambda p, b: T._inputs(cfg, p, b), ps, bs), cfg,
-                   mesh)
+    return _full_d(smap(lambda p, b: T._inputs(cfg, p, b), _outer(ps, cfg),
+                        bs),
+                   cfg, mesh)
 
 
 def _positions(xs):
@@ -353,10 +427,13 @@ def _logits(cfg, ps, hs, mesh):
 
 
 # ================================================================= forward ==
-def _layer(xs, bps, sps, cfg, mesh, positions, idx, dp):
+def _layer(xs, ps, cfg, mesh, positions, idx, dp):
+    """Layer ``idx`` on every shard, its parameters read (under FSDP:
+    gathered) here, inside the remat unit."""
     if T.runs_shared(cfg, idx):
-        xs, _ = _shared(xs, sps, cfg, mesh, positions)
-    xs, aux, _ = _block(xs, bps, cfg, mesh, positions, dp)
+        xs, _ = _shared(xs, _sub(ps, "shared_attn"), cfg, mesh, positions)
+    xs, aux, _ = _block(xs, _sub(ps, "blocks", idx), cfg, mesh, positions,
+                        dp)
     return xs, aux
 
 
@@ -365,21 +442,19 @@ def forward_hidden(cfg, mm: MeshModel, batch: dict):
     mesh-shaped per-position hidden rows and aux losses (``None`` unless
     MoE), and the axes the rows are split over."""
     T._check_family(cfg)
-    mesh, ps = mm.mesh, mm.shards
+    mesh, ps = mm.mesh, mm.params()
     dp = dp_axes(cfg, mesh, next(iter(batch.values())).shape[0])
     bs = shard_batch(batch, mesh, dp)
     xs = _inputs(cfg, ps, bs, mesh)
     positions = _positions(xs)
-    sps = _sub(ps, "shared_attn") if cfg.family == "hybrid" else None
     remat = cfg.remat and torch.is_grad_enabled()
     aux = None
     for idx in range(cfg.n_layers):
-        bps = _sub(ps, "blocks", idx)
         if remat:
-            xs, a = checkpoint(_layer, xs, bps, sps, cfg, mesh, positions,
-                               idx, dp, use_reentrant=False)
+            xs, a = checkpoint(_layer, xs, ps, cfg, mesh, positions, idx,
+                               dp, use_reentrant=False)
         else:
-            xs, a = _layer(xs, bps, sps, cfg, mesh, positions, idx, dp)
+            xs, a = _layer(xs, ps, cfg, mesh, positions, idx, dp)
         if a is not None:
             aux = a if aux is None else _add(aux, a)
     xs = _norm(xs, _sub(ps, "ln_f"), cfg)
@@ -400,7 +475,7 @@ def train_loss(cfg, mm: MeshModel, batch: dict) -> np.ndarray:
     """``transformer.train_loss`` on the mesh: each position's copy of
     the global mean cross-entropy (the data shards' sums and counts
     ``psum``med once) plus ``moe_aux_weight`` × the aux loss."""
-    mesh, ps = mm.mesh, mm.shards
+    mesh, ps = mm.mesh, mm.params()
     hs, aux, dp = forward_hidden(cfg, mm, batch)
     bs = shard_batch(batch, mesh, dp)
     tables = smap(lambda t: t.float(), _table(cfg, ps))
@@ -437,7 +512,7 @@ def prefill(cfg, mm: MeshModel, batch: dict, cache_len: int):
     global tensor on the first position's device; per-position decode
     caches, mesh-shaped, each shard's heads and rows)."""
     T._check_family(cfg)
-    mesh, ps, fam = mm.mesh, mm.shards, cfg.family
+    mesh, ps, fam = mm.mesh, mm.params(), cfg.family
     if fam == "encoder":
         hs, _, dp = forward_hidden(cfg, mm, batch)
         logits = _logits(cfg, ps, smap(lambda h: h[:, -1:], hs), mesh)
@@ -496,11 +571,11 @@ def decode_step(cfg, mm: MeshModel, cache: np.ndarray, tokens, pos: int):
     ``cache`` as :func:`prefill` gives it → (logits (B, 1, V) on the
     first position's device, the new mesh-shaped cache; the k/v tensors
     are updated in place)."""
-    mesh, ps, fam = mm.mesh, mm.shards, cfg.family
+    mesh, ps, fam = mm.mesh, mm.params(), cfg.family
     dp = dp_axes(cfg, mesh, tokens.shape[0])
     toks = shard_batch({"tokens": tokens}, mesh, dp)
-    xs = _full_d(smap(lambda p, b: T._embed(cfg, p, b["tokens"]), ps, toks),
-                 cfg, mesh)
+    xs = _full_d(smap(lambda p, b: T._embed(cfg, p, b["tokens"]),
+                      _outer(ps, cfg), toks), cfg, mesh)
     xs = smap(lambda x: x.to(cfg.activ_dtype), xs)
     if fam not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise ValueError(fam)

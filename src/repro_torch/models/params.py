@@ -22,7 +22,8 @@ tuple with one entry per leading dim (an axis name, a tuple of names,
 or ``None``), the reference's ``PartitionSpec`` as plain data.  Weights
 carry only ``model`` (tensor parallel); optimizer moments add a ``data``
 shard (``train/optimizer.zero_pspec``); MoE experts are also split over
-``data`` (ZeRO-3).  :class:`NamedSharding` is the placement a spec
+``data`` (ZeRO-3); under ``sharding="fsdp"`` every leaf is re-specced by
+:func:`fsdp_transform`.  :class:`NamedSharding` is the placement a spec
 means on a :class:`~repro_torch.launch.mesh.Mesh`: ``split`` makes one
 tensor per mesh position, on that position's device, and ``gather``
 puts the shards back together.  A dim that its axis does not divide is
@@ -111,9 +112,9 @@ def map_stacked(tree, n: int):
 def fsdp_transform(tree, axes: tuple, total: int):
     """Re-spec every leaf for FSDP: the largest dim divisible by the full
     device count is sharded over all of ``axes``; everything else is
-    replicated (the reference's spec function; the port's executor
-    refuses ``sharding="fsdp"``, which runs only in the dry run, ROADMAP
-    Queue 1 item 16b)."""
+    replicated (the reference's spec function; the mesh executor,
+    ``models/parallel.py``, gathers such leaves whole where a layer reads
+    them)."""
     def one(d: ParamDef) -> ParamDef:
         best = None
         for i, dim in enumerate(d.shape):

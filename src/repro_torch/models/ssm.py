@@ -25,8 +25,10 @@ whole ``d_inner``, so its sum of squares is ``psum``med over ``model``
 before the scale; a second ``psum`` completes the row-parallel
 ``out_proj``.
 
-``ssm_impl="boundary_stub"`` (the reference's dry-run stand-in for a
-fused SSD kernel) comes with the dry run, ROADMAP Queue 1 item 16b.
+``ssm_impl="boundary_stub"`` is the reference's dry-run stand-in for a
+fused SSD kernel: the projections, conv, gated norm and ``out_proj``
+run, the chunked scan does not, and a prefill hands decode a zero state
+(decode itself runs the real step, as in the reference).
 """
 from __future__ import annotations
 
@@ -55,15 +57,6 @@ def ssm_defs(d_model: int, d_inner: int, n_heads: int, d_state: int,
         "norm": ParamDef((d_inner,), (), "ones"),
         "out_proj": ParamDef((d_inner, d_model), ("model", None)),
     }
-
-
-def _check_impl(cfg) -> None:
-    impl = getattr(cfg, "ssm_impl", "chunked_jnp")
-    if impl != "chunked_jnp":
-        raise NotImplementedError(
-            f"ssm_impl {impl!r} is not ported to repro_torch: the "
-            "boundary_stub is the dry run's stand-in, ROADMAP Queue 1 item "
-            "16b (use ssm_impl='chunked_jnp')")
 
 
 def _causal_conv(x, w):
@@ -184,14 +177,21 @@ def _sl(t, h0: int, hl: int, n: int, dim: int = -1):
 def _gated(x, p, cfg, chunk, heads):
     """The mixer on (B, S, d) up to its gated norm, for the ``heads``
     ``(h0, hl)`` whose columns ``p`` holds: ``(y·silu(z), xin, final
-    state)``."""
-    _check_impl(cfg)
+    state)``.  Under ``ssm_impl="boundary_stub"`` (the dry run's stand-in
+    for a fused SSD kernel) the scan is left out: the B/C/dt projections
+    stay alive folded in at ``1e-30``, and the final state is zero."""
     h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
     h0, hl = heads
     b, s, _ = x.shape
     z = matmul(x, p["wz"])
     xin = matmul(x, p["wx"])
     xs = F.silu(_causal_conv(xin, p["conv_w"]))
+    if getattr(cfg, "ssm_impl", "chunked_jnp") == "boundary_stub":
+        small = (matmul(x, p["wB"]).mean() + matmul(x, p["wC"]).mean()
+                 + matmul(x, p["wdt"]).mean()) * 1e-30
+        state = torch.zeros((b, hl, cfg.ssm_state, hd), dtype=torch.float32,
+                            device=x.device)
+        return xs * F.silu(z) + small, xin, state
     B = _sl(_heads(matmul(x, p["wB"]), g, h // g), h0, hl, h, -2)
     C = _sl(_heads(matmul(x, p["wC"]), g, h // g), h0, hl, h, -2)
     dt, A, D = (_sl(t, h0, hl, h) for t in _dt_A_D(p, matmul(x, p["wdt"])))
@@ -299,7 +299,6 @@ def ssm_decode(x, p, cfg, conv_state, ssm_state):
 def _gated_decode(x, p, cfg, conv_state, ssm_state, heads):
     """:func:`ssm_decode` up to its gated norm, for the ``heads``
     ``(h0, hl)`` whose columns ``p`` (and the caches) hold."""
-    _check_impl(cfg)
     h, hd, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups
     h0, hl = heads
     b = x.shape[0]

@@ -39,10 +39,11 @@ parameter module, :func:`forward_hidden`, :func:`train_loss`,
 :func:`prefill` and :func:`decode_step` hand it to its own methods,
 which run on its mesh (``models/parallel.py``): tensor
 parallel over ``model``, data parallel over the DP axes, the MoE expert
-parallel (``apply_moe_ep``), the flash kernel per shard.  The dry-run
-stand-ins ``attention_impl="boundary_stub"`` and
-``ssm_impl="boundary_stub"`` come with the dry run (ROADMAP Queue 1
-item 16b): ``attention_program_for`` and ``models/ssm.py`` refuse them.
+parallel (``apply_moe_ep``), the flash kernel per shard.  The dry
+run's stand-ins ``attention_impl="boundary_stub"`` (inlined in
+:func:`apply_attn`, never compiled) and ``ssm_impl="boundary_stub"``
+(``models/ssm.py``) keep a layer's boundary traffic and drop its
+sequence-mixing work, as the reference's do.
 """
 from __future__ import annotations
 
@@ -102,8 +103,17 @@ def apply_attn(x, p, cfg, *, positions, causal=True):
         cos, sin = L.rope_cos_sin(positions, hd, cfg.rope_theta)
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-    prog = attention_program_for(cfg, causal=causal, dtype=q.dtype)
-    out = prog.apply(q, k.to(q.dtype), v.to(q.dtype))
+    if cfg.attention_impl == "boundary_stub":
+        # the dry run's stand-in for the flash kernel: the same q/k/v/o
+        # traffic, no S x S work (each head's k and v averaged over the
+        # sequence, which a shard holds whole)
+        g = h // cfg.kv_heads
+        km = k.mean(dim=1, keepdim=True).repeat_interleave(g, dim=2)
+        vm = v.mean(dim=1, keepdim=True).repeat_interleave(g, dim=2)
+        out = q * km + vm
+    else:
+        prog = attention_program_for(cfg, causal=causal, dtype=q.dtype)
+        out = prog.apply(q, k.to(q.dtype), v.to(q.dtype))
     return L.matmul(out.reshape(b, s, h * hd), p["wo"]), (k, v)
 
 

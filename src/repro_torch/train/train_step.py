@@ -48,8 +48,10 @@ def make_train_step(cfg, ocfg: opt.OptConfig):
     tensors: ``loss``, ``lr``, ``grad_norm``."""
     n_micro = max(1, cfg.microbatches)
     # resolve the attention program once, so a bad head/chunk layout or
-    # attention_impl fails here, not inside the first step
-    attention_program_for(cfg, causal=True)
+    # attention_impl fails here, not inside the first step (the dry
+    # run's boundary_stub is inlined by the model, not compiled)
+    if cfg.attention_impl != "boundary_stub":
+        attention_program_for(cfg, causal=True)
 
     def grads_of(loss, leaves):
         # a leaf the loss does not reach gets a zero gradient, as in jax

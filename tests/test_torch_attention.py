@@ -278,7 +278,9 @@ def test_spec_signature_groups_and_arch_mapping():
     import repro.configs as RC
     import repro_torch.configs as TC
 
-    for name in TC.list_archs():
+    assert TC.list_archs() == RC.list_archs()
+    # stencil-suite (no heads, no model) is the dry run's, not attention's
+    for name in (a for a in TC.list_archs() if a != "stencil-suite"):
         for impl in ("flash_jnp", "flash_pallas"):
             r = rapi.spec_from_arch(RC.get_config(name))
             t = tapi.spec_from_arch(TC.get_config(name))

@@ -1645,3 +1645,34 @@ def test_flash_bwd_at_shard_shape(cuda_device, dtype):
         else:
             lim = 1e-4 + 2.0 ** -6 * w.double().abs()
             assert bool(((a.double() - w.double()).abs() <= lim).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,t", [("j2d5pt", (200, 300), 4),
+                                          ("j2d25pt", (130, 97), 2),
+                                          ("j3d7pt", (40, 33, 70), 3),
+                                          ("j3d27pt", (24, 20, 36), 2)])
+def test_plan_none_launches_the_kernel(cuda_device, name, shape, t):
+    """``compile_stencil(plan=None)`` on the card launches the kernel at
+    the request-default tile, once a sweep, never the plain version, and
+    the deprecated shim ``ops.ebisu_stencil`` is that program; both are
+    held to the planned program within 1e-4."""
+    import warnings
+
+    from repro_torch.kernels import ops
+
+    spec = tspec.get(name)
+    x = field(shape).to(cuda_device)
+    prog = compile_stencil(spec, shape, t=t, plan=None, device=cuda_device)
+    counter = st.ebisu2d_padded if spec.ndim == 2 else st3.ebisu3d_padded
+    before = counter.launches
+    got = prog.run(x, 2 * t + 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        shim = ops.ebisu_stencil(x, spec, t)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 4       # t, t, 1, then the shim's
+    want = compile_stencil(spec, shape, t=t, device=cuda_device)
+    assert float((got - want.run(x, 2 * t + 1)).abs().max()) < 1e-4
+    assert torch.equal(shim, prog.apply(x))
+    assert float((shim - want.apply(x)).abs().max()) < 1e-4

@@ -46,7 +46,7 @@ from repro_torch.serve import serve_step as TS
 
 DENSE = ["gemma-7b", "h2o-danube-1.8b", "minicpm-2b", "qwen3-14b"]
 # the reference's ten LM configs (its eleventh, stencil-suite, is the dry
-# run's: ROADMAP Queue 1 item 16b)
+# run's and builds no model)
 LM_ARCHS = sorted(DENSE + ["granite-moe-3b-a800m", "hubert-xlarge",
                            "internvl2-1b", "mamba2-130m",
                            "qwen3-moe-235b-a22b", "zamba2-2.7b"])
@@ -63,7 +63,7 @@ def _dtype_name(d):
 # ============================================================== configs ==
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_config_matches_reference_registry(name):
-    assert TC.list_archs() == LM_ARCHS
+    assert TC.list_archs() == RC.list_archs()
     assert [a for a in RC.list_archs() if a != "stencil-suite"] == LM_ARCHS
     for r, t in ((RC.get_config(name), TC.get_config(name)),
                  (RC.get_config(name).reduced(),
@@ -287,8 +287,8 @@ def test_prefill_matches_forward_and_cache_defs(impl):
 def test_other_families_refused():
     """Every LM family is ported; the stencil family (the reference's
     stencil-suite, the dry run's arch) and an unknown one raise, as the
-    reference's ``block_defs`` does, and the stencil-suite config is
-    refused, naming the dry run's item."""
+    reference's ``block_defs`` does, and the stencil-suite config is the
+    reference's, field for field."""
     for family in ("stencil", "rnn"):
         cfg = dataclasses.replace(TC.get_config("h2o-danube-1.8b").reduced(),
                                   family=family)
@@ -296,8 +296,10 @@ def test_other_families_refused():
             TT.param_defs(cfg)
         with pytest.raises(ValueError, match=family):
             TT.forward_hidden(cfg, None, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        TC.get_config("stencil-suite")
+    r, t = RC.get_config("stencil-suite"), TC.get_config("stencil-suite")
+    assert (t.family, t.n_layers, t.d_model, t.source) == (
+        r.family, r.n_layers, r.d_model, r.source) == (
+        "stencil", 0, 0, "ICS'23 EBISU Table 2")
 
 
 def test_launch_serve_runs_on_cpu():

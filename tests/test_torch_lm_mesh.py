@@ -57,7 +57,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.models.params import (NamedSharding, ParamModule,
                                        flat_defs, fsdp_transform,
                                        init_params, map_stacked,
-                                       tree_shardings)
+                                       params_from_jax, tree_shardings)
 from repro_torch.serve import serve_step as TS
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import loss_fn, make_train_step
@@ -305,7 +305,13 @@ def test_mesh_train_steps_match_unsharded(name, shape, micro, remat,
     backward through the ``pmean`` into the router is held too."""
     cfg = _cfg(name, microbatches=micro, remat=remat, moe_aux_weight=0.01)
     ep = name.startswith("granite") and shape[1] > 1
+    _train_matches_unsharded(cfg, cfg, shape, ep, monkeypatch)
 
+
+def _train_matches_unsharded(cfg, mesh_cfg, shape, ep, monkeypatch):
+    """Loss and gradients at init, then two AdamW steps of ``mesh_cfg``
+    on a ``shape`` mesh against ``cfg``'s unsharded step (``ep``: the
+    unsharded step runs ``_ep_aux_oracle``)."""
     def unsharded(fn, *args):
         with monkeypatch.context() as m:
             if ep:
@@ -316,7 +322,7 @@ def test_mesh_train_steps_match_unsharded(name, shape, micro, remat,
     model = init_params(TT.build_model(cfg, "cpu"),
                         torch.Generator().manual_seed(0))
     mesh = _mesh(shape)
-    mcfg = cfg.with_mesh(mesh)
+    mcfg = mesh_cfg.with_mesh(mesh)
     mm = TP.MeshModel(mcfg, mesh, model)
     batch = _train_batch(cfg)
 
@@ -639,20 +645,168 @@ def test_production_mesh_and_spec_helpers(monkeypatch):
 
 
 def test_fsdp_refused_naming_item_16b(monkeypatch):
-    """``sharding="fsdp"`` runs only in the dry run (item 16b): the mesh
-    executor and both launchers refuse it before any weight is made.
-    The fsdp config is registered for this test only, so the registry
-    other test files read is left as it was."""
+    """``sharding="fsdp"`` is no longer refused: the mesh executor and
+    both launchers run it (serving held to the unsharded tokens, a train
+    step's loss finite).  The fsdp config is registered for this test
+    only, so the registry other test files read is left as it was."""
     from repro_torch.configs import base as TCB
 
-    mesh = _mesh((2, 2))
-    cfg = dataclasses.replace(_cfg("h2o-danube-1.8b"), sharding="fsdp")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        TP.MeshModel(cfg.with_mesh(mesh), mesh)
     base = TC.get_config("h2o-danube-1.8b")
     monkeypatch.setitem(TCB._REGISTRY, "h2o-fsdp", dataclasses.replace(
         base, name="h2o-fsdp", sharding="fsdp"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        tserve.run("h2o-fsdp", device="cpu", n_data=2, n_model=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        tlaunch.train("h2o-fsdp", device="cpu", n_data=2, n_model=2)
+    got = tserve.run("h2o-fsdp", device="cpu", n_data=2, n_model=2,
+                     repeats=1)
+    want = tserve.run("h2o-danube-1.8b", device="cpu", repeats=1)
+    assert torch.equal(got.tokens, want.tokens)
+    assert set(got.collectives_per_prefill) == {"all_gather"}
+    _, _, losses = tlaunch.train("h2o-fsdp", device="cpu", n_data=2,
+                                 n_model=2, steps=1, batch=4, seq=32)
+    assert all(math.isfinite(float(v)) for v in losses)
+
+
+# ================================================================ fsdp ====
+FSDP = ["h2o-danube-1.8b", "granite-moe-3b-a800m"]
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", FSDP)
+def test_fsdp_serving_matches_unsharded(name, shape):
+    """``sharding="fsdp"``: prefill logits, decode logits and greedy
+    tokens on a mesh equal the unsharded path's (each split leaf
+    gathered over every axis where a layer reads it: one ``all_gather``
+    over ``data+model`` a split leaf a use, no other collective on a
+    mesh whose DP axes are both)."""
+    cfg, model, (want, want_steps, want_toks) = _unsharded(name)
+    mesh = _mesh(shape)
+    mcfg = dataclasses.replace(cfg, sharding="fsdp").with_mesh(mesh)
+    mm = TP.MeshModel(mcfg, mesh, model)
+    D.reset_collectives()
+    got, steps, toks = _serve(mcfg, mm, _prompt(cfg))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32, rtol=F32)
+    for g, w in zip(steps, want_steps):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=F32, rtol=F32)
+    assert torch.equal(toks, want_toks)
+    counts = D.collective_counts()
+    assert set(counts["all_gather"]) >= {"data+model"}
+    split = [n for n, d in mm.flat.items()
+             if mm.shardings[n].dims(d.shape)]
+    assert split and all(mm.shardings[n].dims(mm.flat[n].shape)
+                         == {k: ("data", "model") for k in
+                             mm.shardings[n].dims(mm.flat[n].shape)}
+                         for n in split)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", FSDP)
+def test_fsdp_train_steps_match_unsharded(name, shape, monkeypatch):
+    """``sharding="fsdp"`` train steps (remat on): loss and every
+    gradient leaf at init, then two AdamW steps with the moments on the
+    parameters' shards, against the unsharded step at the tp test's
+    limits (the MoE's experts are gathered whole: the dense dispatch)."""
+    cfg = _cfg(name, remat=True, moe_aux_weight=0.01)
+    _train_matches_unsharded(cfg, dataclasses.replace(cfg, sharding="fsdp"),
+                             shape, False, monkeypatch)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", ARCHS)
+def test_fsdp_mesh_specs_match_reference(name, shape):
+    """The executor's FSDP placement is the reference's
+    ``fsdp_transform``: each leaf of ``mesh_defs`` carries the spec the
+    reference gives it on the same mesh, its stacked layer dim dropped.
+    The one deviation: where the reference splits that layer dim (a
+    per-layer leaf no larger than the layer count, zamba2's ``A_log``,
+    ``D``, ``dt_bias`` at 4 layers and 4 heads on 4 devices), the port,
+    whose layers are separate leaves, applies ``fsdp_transform`` to the
+    per-layer leaf."""
+    mesh = _mesh(shape)
+    fm = _FakeMesh(shape, ("data", "model"))
+    t = dataclasses.replace(TC.get_config(name).reduced(), sharding="fsdp")
+    r = dataclasses.replace(RC.get_config(name).reduced(), sharding="fsdp")
+    tm = t.with_mesh(mesh)
+    got = flat_defs(TP.mesh_defs(tm, mesh))
+    want = _ref_flat(RT.param_defs(r.with_mesh(fm)))
+    layer_dim = []
+    for n, d in got.items():
+        parts = n.split(".")
+        if parts[0] == "blocks":
+            ref = want[".".join(["blocks"] + parts[2:])]
+            spec = tuple(ref.pspec[1:])
+            if ref.pspec[0] is not None:
+                layer_dim.append(parts[-1])
+                spec = fsdp_transform(dataclasses.replace(d, pspec=()),
+                                      tm.dp_axes, math.prod(shape)).pspec
+        else:
+            spec = tuple(want[n].pspec)
+        spec = spec + (None,) * (len(d.shape) - len(spec))
+        assert tuple(d.pspec) == tuple(
+            None if e is None else tuple(e) if not isinstance(e, str)
+            else e for e in spec), (n, d.pspec, spec)
+    assert set(layer_dim) <= {"A_log", "D", "dt_bias"}, layer_dim
+
+
+# ====================================================== boundary stubs ====
+@functools.lru_cache(maxsize=None)
+def _stub_reference(name, field):
+    """The reference's reduced ``name`` with ``field="boundary_stub"``:
+    weights, prefill logits and cache, one decode step's logits."""
+    rcfg = dataclasses.replace(RC.get_config(name).reduced(),
+                               **dict(FR.KW, **{field: "boundary_stub"}))
+
+    def run(key, prompt):
+        params = FR._params(rcfg, key)
+        logits, cache = RT.prefill(rcfg, params, prompt, FR.CACHE_LEN)
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)
+        step, _ = RT.decode_step(rcfg, params, cache, tok[:, None],
+                                 jnp.int32(FR.SEQ))
+        return dict(params=params, logits=logits, cache=cache, step=step)
+
+    prompt = FR.prompt_for(rcfg)
+    out = jax.jit(run)(jax.random.PRNGKey(3),
+                       {k: jnp.asarray(v) for k, v in prompt.items()})
+    return dict(FR.np_tree(out), prompt=prompt,
+                params=jax.tree.map(np.asarray, out["params"]))
+
+
+STUBS = [("h2o-danube-1.8b", "attention_impl"),
+         ("mamba2-130m", "ssm_impl"), ("zamba2-2.7b", "ssm_impl")]
+
+
+@pytest.mark.parametrize("shape", [None, (2, 2)],
+                         ids=["unsharded", "2x2"])
+@pytest.mark.parametrize("name,field", STUBS)
+def test_boundary_stubs_match_reference(name, field, shape):
+    """``attention_impl="boundary_stub"`` (q · mean_s(k) + mean_s(v), no
+    S × S work) and ``ssm_impl="boundary_stub"`` (no scan; a zero state,
+    the real conv tail) against the reference's same stub, its weights
+    carried across: prefill logits, the SSM caches, one decode step,
+    unsharded and on a (2, 2) mesh (split heads take the sequence mean
+    of their own heads; the gated norm keeps its ``psum``)."""
+    ref = _stub_reference(name, field)
+    cfg = dataclasses.replace(TC.get_config(name).reduced(),
+                              **dict(FR.KW, **{field: "boundary_stub"}))
+    model = TT.build_model(cfg, "cpu")
+    model.load_state_dict(params_from_jax(ref["params"]))
+    params = model
+    if shape is not None:
+        mesh = _mesh(shape)
+        cfg = cfg.with_mesh(mesh)
+        params = TP.MeshModel(cfg, mesh, model)
+    logits, cache = TT.prefill(cfg, params, FR.to_torch(ref["prompt"]),
+                               FR.CACHE_LEN)
+    np.testing.assert_allclose(logits.numpy(), ref["logits"], atol=F32,
+                               rtol=F32)
+    if field == "ssm_impl":
+        # the first position's caches: its rows and its heads' columns
+        first = cache if shape is None else cache.flat[0]
+        for i, c in enumerate(first["ssm"]):
+            assert not torch.any(c["state"])
+            rows, cols = c["conv"].shape[0], c["conv"].shape[2]
+            np.testing.assert_allclose(
+                c["conv"].numpy(),
+                ref["cache"]["ssm"]["conv"][i][:rows, :, :cols], atol=F32,
+                rtol=F32)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    step, _ = TT.decode_step(cfg, params, cache, tok[:, None], FR.SEQ)
+    np.testing.assert_allclose(step.numpy(), ref["step"], atol=F32,
+                               rtol=F32)

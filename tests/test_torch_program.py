@@ -176,20 +176,21 @@ def test_no_device_without_cuda_raises(monkeypatch):
      ValueError, "every must be >= 1"),
     # run_batched and run_padded are ported: their ids hold refusals on a
     # 3-D program (neumann under a mesh; plan=None, the deprecated shims'
-    # request-default tiles)
+    # request-default tiles, is ported too: what it still refuses, a
+    # plan that is neither an EbisuPlan, None nor "auto")
     (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), t=1,
                              mesh=(2, 1), boundary=Boundary.neumann(),
                              device="cpu"),
      ValueError, "does not support neumann"),
-    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), plan=None,
+    (lambda: compile_stencil(tspec.get("j3d7pt"), (16, 16, 16), plan=(8, 8),
                              device="cpu"),
-     NotImplementedError, "ROADMAP Queue 1 item 17"),
+     ValueError, "EbisuPlan, None or 'auto'"),
 ], ids=["3d", "stream", "tuned", "mesh", "run_sharded", "run_resumable",
         "run_batched", "run_padded"])
 def test_refusals_name_the_roadmap_item(call, exc, match):
-    """What the port still refuses: ``plan=None`` names its ROADMAP item;
-    ``mode="tuned"``, the sharded and campaign paths refuse what the
-    reference refuses."""
+    """What the port refuses: nothing names a ROADMAP item any more;
+    ``mode="tuned"``, the sharded and campaign paths and ``plan=`` refuse
+    what the reference refuses."""
     with pytest.raises(exc, match=match):
         call()
 

@@ -185,8 +185,8 @@ def test_stream_refusals():
                         device="cpu")
     with pytest.raises(ValueError, match="3-D"):
         compile_stencil(tspec.get("j3d7pt"), (19, 13), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_stencil(tspec.get("j3d7pt"), SHAPE, plan=None,
+    with pytest.raises(ValueError, match="EbisuPlan, None or 'auto'"):
+        compile_stencil(tspec.get("j3d7pt"), SHAPE, plan="request",
                         device="cpu")
 
 

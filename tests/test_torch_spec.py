@@ -240,7 +240,8 @@ def test_hardware_for_cpu_is_the_datasheet_model():
 def test_import_gate():
     """``import repro_torch`` (its API, the LM serving and training
     modules, the LM mesh executor and the int8 all-reduce, the stencil
-    service and the tuning package) pulls in no
+    service and the tuning package, the dry run, the stencil-suite
+    config and the deprecated shims) pulls in no
     jax, no triton, nothing of the reference package, and initializes
     no CUDA."""
     code = textwrap.dedent("""
@@ -274,6 +275,8 @@ def test_import_gate():
         import repro_torch.serve.faults, repro_torch.serve.stencil_service
         import repro_torch.launch.serve_stencil
         import repro_torch.models.parallel, repro_torch.train.compress
+        import repro_torch.launch.dryrun, repro_torch.configs.stencil_suite
+        import repro_torch.kernels.ops, repro_torch.kernels.sweep
         import torch
         roots = ("jax", "jaxlib", "triton", "repro")
         bad = sorted(m for m in sys.modules if m.split(".")[0] in roots)

@@ -225,12 +225,26 @@ def test_apply_ssm_grads_match_jax_vjp():
 
 
 def test_boundary_stub_refused():
-    _, t, _, tp = _mixer()
+    """``ssm_impl="boundary_stub"`` is ported (no longer refused): the
+    mixer without its scan (the B/C/dt projections folded in at
+    ``1e-30``, a zero state, the real conv tail) against the reference's
+    stub, and decode runs the real step, as the reference's does."""
+    r, t, jp, tp = _mixer()
+    r = dataclasses.replace(r, ssm_impl="boundary_stub")
     t = dataclasses.replace(t, ssm_impl="boundary_stub")
-    _, tx = _x(1, 5, t.d_model, "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        TS.apply_ssm(tx, tp, t)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16b"):
-        TS.ssm_decode(tx[:, :1], tp, t, torch.zeros(1, 4, t.ssm_inner),
-                      torch.zeros(1, t.ssm_heads, t.ssm_state,
-                                  t.ssm_head_dim))
+    jx, tx = _x(2, 21, t.d_model, "float32")
+    y, tail, state = TS.apply_ssm_with_state(tx, tp, t, chunk=t.ssm_chunk)
+    want_y, want_tail, want_state = jax.jit(
+        lambda x, p: RS.apply_ssm_with_state(x, p, r, chunk=r.ssm_chunk))(
+        jx, jp)
+    _close(y, want_y, F32, "out")
+    _close(tail, want_tail, F32, "tail")
+    assert state.dtype == torch.float32 and not torch.any(state)
+    assert state.shape == tuple(want_state.shape)
+    _close(TS.apply_ssm(tx, tp, t, chunk=t.ssm_chunk), want_y, F32, "apply")
+    conv = torch.from_numpy(np.asarray(want_tail))
+    got = TS.ssm_decode(tx[:, :1], tp, t, conv, state)
+    want = jax.jit(lambda x, p, c, s: RS.ssm_decode(x, p, r, c, s))(
+        jx[:, :1], jp, want_tail, want_state)
+    for g, w, what in zip(got, want, ("out", "conv", "state")):
+        _close(g, w, F32, what)

@@ -276,9 +276,10 @@ def test_tuned_mode_refusals(tmp_path):
     with pytest.raises(ValueError, match="single-device"):
         compile_stencil(SPEC, SHAPE, mode="tuned", mesh=1,
                         plan_db=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        compile_stencil(SPEC, SHAPE, plan=None, device="cpu")
-    with pytest.raises(ValueError, match="EbisuPlan or 'auto'"):
+    with pytest.raises(ValueError, match="drop plan="):
+        compile_stencil(SPEC, SHAPE, mode="tuned", plan=None,
+                        plan_db=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="EbisuPlan, None or 'auto'"):
         compile_stencil(SPEC, SHAPE, plan="fast", device="cpu")
 
 
