@@ -76,7 +76,9 @@ in its own counted run:
   with ``attention_impl="flash_pallas"``, so every prefill layer launches
   the CUDA flash forward kernel (24 per prefill; one warm-up and two timed
   prefills; bf16: the tensor-core kernel of ``csrc/flash_attention_mma.cu``,
-  while float32 inputs run the FMA kernel of ``csrc/flash_attention.cu``);
+  while float32 inputs run the 3xTF32 tensor-core kernel of
+  ``csrc/flash_attention_tf32.cu``, counted in the f32 whole path, 4
+  launches: 2 layers, a prefill and greedy decoding's);
 * training (``flash_attention_bwd``): ``launch.train.train`` trains
   h2o-danube-1.8b at the same widths (bf16 parameters and activations,
   remat, its own 2 microbatches) for 3 AdamW steps at batch 2 × 8192
@@ -84,8 +86,11 @@ in its own counted run:
   every layer launches the flash forward kernel twice per microbatch
   (forward and remat recompute) and each backward kernel once (bf16: the
   tensor-core kernels of ``csrc/flash_attention_mma.cu`` and
-  ``csrc/flash_attention_bwd_mma.cu``; float32 inputs run the FMA kernels of
-  ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``).
+  ``csrc/flash_attention_bwd_mma.cu``; float32 inputs run the 3xTF32
+  kernels of ``csrc/flash_attention_tf32.cu`` and
+  ``csrc/flash_attention_bwd_tf32.cu``, counted in the f32 whole training
+  path: a loss and its gradients, then a step of 2 microbatches at depth
+  2, 12 forward launches and 6 of each backward kernel).
 
 * families (``flash_attention``, ``flash_attention_bwd``): the other LM
   families at their published widths, bf16, ``flash_pallas``, random
@@ -176,7 +181,7 @@ element, two units in the last place, with a control that the limit
 refuses one key dropped from each window, bf16 lse < 1e-4 and a second
 launch equal bit for bit; both instantiations; the
 backward's gradients: f32 < 1e-4 (the float32 kernels of
-``csrc/flash_attention_bwd.cu``), bf16 within the same per-element limit,
+``csrc/flash_attention_bwd_tf32.cu``), bf16 within the same per-element limit,
 with the window − 1 control and a second launch equal bit for bit) and at
 small ones (GQA 1/2/4/8, bidirectional, hd 16/64/80/96/128/144/256,
 windows on the tile edges, S no multiple of 64, rows that keep no
@@ -197,11 +202,15 @@ chained ``conv2d``/``conv3d`` calls (TF32 off) for the stencils, one
 ``scaled_dot_product_attention`` with the same boolean mask and
 ``enable_gqa=True`` for attention (its backward alone, by
 ``torch.autograd.grad``, for the backward kernel, with the backend that
-ran it printed).  The bf16 forward and backward are also timed, as
-``prev_ms``, on the float32-FMA kernels' bf16 instantiations, the routes
-they took before the tensor-core kernels, after each instantiation is
-held to the same limit.  The ``[model]`` lines give what is counted, not
-measured, of the bf16 forward and backward kernels: their tiles, the
+ran it printed).  The float32 kernels are timed too, at the same layer
+shapes in float32 (the forward with and without the lse, dQ and dK/dV
+apart), each beside its plain version, its bound at the dense TF32
+tensor peak and ``scaled_dot_product_attention`` (and its backward) in
+float32 with ``torch.backends.cuda.matmul.allow_tf32 = False``, with the
+backend it took; they are the ``flash_attention_f32`` and
+``flash_attention_bwd_f32`` entries of the ``kernels`` line.  The
+``[model]`` lines give what is counted, not measured, of the forward and
+backward kernels of both dtypes: their tiles, the
 flops they issue per kept pair, their shared memory and ptxas's
 registers and spill stores, and the forward's modelled flops over its
 measured ms; for each 2-D sweep, its CTAs (interior ones apart), the
@@ -214,9 +223,9 @@ padded layout written once) over 3.35 TB/s and
 ``flops_per_cell·t·cells`` over 67 TFLOP/s fp32 (34 fp64); of an
 attention call, the larger of q, k, v read and o written
 once over 3.35 TB/s and ``4·hd`` flops per (query, key) pair the mask
-keeps over 989 TFLOP/s dense bf16 (H100 SXM datasheet peaks); of a
-backward call, q, k, v, o, do and lse read and dq, dk, dv written once,
-and ``10·hd`` flops per kept pair.  The 2-D
+keeps over 989 TFLOP/s dense bf16, 495 dense TF32 for float32 (H100
+SXM datasheet peaks); of a backward call, q, k, v, o, do and lse read
+and dq, dk, dv written once, and ``10·hd`` flops per kept pair.  The 2-D
 rows also give ``bound_copy_ms`` (the measured device-to-device copy rate
 in place of 3.35 TB/s) and ``ms_f32_at_f64_tile`` (the f32 sweep at the
 f64 plan's smaller tile, which tells the tile's cost from the type's).
@@ -246,10 +255,11 @@ SOURCE_3D = "src/repro_torch/kernels/csrc/stencil3d.cu"
 REPLACES_FA = ("src/repro/kernels/flash_attention.py:35 and "
                "src/repro/kernels/flash_attention.py:127")
 SOURCE_FA = "src/repro_torch/kernels/csrc/flash_attention_mma.cu"
-SOURCE_FA_F32 = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE_FA_F32 = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
 REPLACES_FA_BWD = "src/repro/kernels/flash_attention.py:140"
 SOURCE_FA_BWD = "src/repro_torch/kernels/csrc/flash_attention_bwd_mma.cu"
-SOURCE_FA_BWD_F32 = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+SOURCE_FA_BWD_F32 = (
+    "src/repro_torch/kernels/csrc/flash_attention_bwd_tf32.cu")
 # the LM phase: h2o-danube-1.8b at its published widths, served
 LM_ARCH = "h2o-danube-1.8b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_REPEATS = 4, 8192, 32, 2
@@ -427,8 +437,8 @@ def main() -> int:
             continue
         t0 = time.perf_counter()
         entry = run[phase]()
-        if entry is not None:      # the phases that own a kernel's entry
-            entries.append(entry)
+        if entry is not None:      # the phases that own kernels' entries
+            entries.extend(entry if isinstance(entry, list) else [entry])
         torch.cuda.empty_cache()
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f}s",
               flush=True)
@@ -1902,10 +1912,19 @@ def lm_serve(dev, held) -> dict:
     got = {}
     for impl in ("flash_pallas", "flash_jnp"):
         c = dataclasses.replace(cfg2, attention_impl=impl)
+        zero_counts()
         logits, _ = transformer.prefill(c, model, {"tokens": prompt},
                                         cache_len)
         gen = serve_step.greedy_generate(c, model, prompt, 8, cache_len)
         got[impl] = (logits, gen)
+        if impl == "flash_pallas":   # the float32 route, counted
+            launches_f32 = fa.flash_attention_fwd.launches
+    print(f"[main path LM f32] flash_attention launches (the float32 "
+          f"route): {launches_f32} (2 prefills of {cfg2.n_layers} layers)",
+          flush=True)
+    check(launches_f32 == 2 * cfg2.n_layers,
+          f"the f32 whole path launched the forward {launches_f32} times, "
+          f"not {2 * cfg2.n_layers}")
     check(bool(torch.isfinite(got["flash_pallas"][0]).all()),
           "whole path: non-finite logits")
     whole_err = held(got["flash_pallas"][0], got["flash_jnp"][0],
@@ -2013,24 +2032,6 @@ def lm_serve(dev, held) -> dict:
         q, k, v, causal=True, window=window), 10, 2)
     plain_ms = median_ms(lambda: fa.flash_attention_fwd_plain(
         q, k, v, causal=True, window=window), 3, 1)
-    # prev_ms: the same bf16 call on the float32-FMA kernel's bf16
-    # instantiation (SOURCE_FA_F32, the bf16 route before the tensor-core
-    # kernel), checked against the plain version first
-    want, _ = fa.flash_attention_fwd_plain(q, k, v, causal=True,
-                                           window=window)
-    bf16_route = fa._FWD_ROUTES[torch.bfloat16]
-    fa._FWD_ROUTES[torch.bfloat16] = fa._FWD_ROUTES[torch.float32]
-    try:
-        prev_out, _ = fa.flash_attention_fwd(q, k, v, causal=True,
-                                             window=window)
-        torch.cuda.synchronize()
-        _, prev_share = held_bf16(prev_out, want, f"flash bfloat16 {shape}: "
-                                  "out vs plain (FMA kernel)")
-        prev_ms = median_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True, window=window), 5, 1)
-    finally:
-        fa._FWD_ROUTES[torch.bfloat16] = bf16_route
-    del prev_out, want
     pos = torch.arange(LM_PROMPT, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
                                              > pos[:, None] - window)
@@ -2063,37 +2064,126 @@ def lm_serve(dev, held) -> dict:
           f"{json.dumps(model)}", flush=True)
     row = dict(shape=[LM_BATCH, LM_PROMPT, h, kv, hd], window=window,
                dtype="bfloat16", ms=kern_ms, ms_lse_off=lse_off_ms,
-               prev_ms=prev_ms, prev_bf16_share_of_limit=prev_share,
                plain_ms=plain_ms,
                library_ms=lib_ms, **bound,
                roofline_share=bound["bound_ms"] / kern_ms,
                tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
                launches=launches)
     print("[timing] " + json.dumps(row), flush=True)
-    return {
+    del q, k, v, qt, kt, vt
+    f32 = f32_fwd_timing(dev, shape, (LM_BATCH, LM_PROMPT, h, kv, hd),
+                         window, launches_f32, errs)
+    f32.update(max_abs_err_whole_path_f32=whole_err,
+               greedy_agreement_whole_path=agree)
+    return [{
         "name": "flash_attention", "route": "cuda", "source": SOURCE_FA,
         "replaces": REPLACES_FA, "launches": launches,
-        "max_abs_err": max(errs["float32"], errs["bfloat16"]),
+        "max_abs_err": errs["bfloat16"],
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": lib_ms,
         "times_are": "one forward call at h2o-danube-1.8b's prefill layer "
                      "shapes (B4 S8192 H32 KV8 hd80, causal, window 4096), "
                      "bf16, with the lse (the instantiation the path "
                      "launches), on the tensor-core kernel; ms_lse_off is "
-                     "the lse-off instantiation; prev_ms is the same call "
-                     "on the float32-FMA kernel's bf16 instantiation; "
-                     "library_ms is scaled_dot_product_attention with the "
-                     "same boolean mask",
-        "source_f32": SOURCE_FA_F32, "prev_ms": prev_ms,
+                     "the lse-off instantiation; library_ms is "
+                     "scaled_dot_product_attention with the same boolean "
+                     "mask",
         "ms_lse_off": lse_off_ms,
-        "max_abs_err_bf16": errs["bfloat16"],
         "bf16_share_of_limit": shares["bfloat16"],
         "bf16_limit": [BF16_ATOL, BF16_RTOL],
         "bf16_limit_control_window_minus_1": control,
-        "max_abs_err_f32": errs["float32"], "max_abs_err_lse_f32":
-        errs["lse"], "max_abs_err_lse_bf16": errs["lse_bf16"],
-        "max_abs_err_whole_path_f32": whole_err,
-        "greedy_agreement_whole_path": agree, "lm": lm, "timing": row}
+        "max_abs_err_lse_bf16": errs["lse_bf16"], "lm": lm, "timing": row},
+        f32]
+
+
+def f32_fwd_timing(dev, shape, dims, window, launches, errs) -> dict:
+    """The float32 forward kernel timed at the full-width layer shape
+    ``dims`` = (B, S, H, KV, hd): with and without the lse, beside its
+    plain version, its bound at the dense TF32 tensor peak and one
+    ``scaled_dot_product_attention`` call in float32 with
+    ``torch.backends.cuda.matmul.allow_tf32 = False``; returns the
+    ``flash_attention_f32`` entry of the ``kernels`` line (``launches``:
+    the counted f32 whole path's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.roofline import (H100_TF32_TENSOR_FLOPS,
+                                           attention_bound)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kv, hd = dims
+    gen = torch.Generator(dev).manual_seed(4)
+    q, k, v = (torch.randn(x, generator=gen, device=dev)
+               for x in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    kern_ms = median_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, causal=True, window=window), 10, 2)
+    lse_off_ms = median_ms(lambda: fa.flash_attention(
+        q, k, v, causal=True, window=window), 10, 2)
+    plain_ms = median_ms(lambda: fa.flash_attention_fwd_plain(
+        q, k, v, causal=True, window=window), 3, 1)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # a float32 yardstick
+    try:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_ms = median_ms(library, 5, 1)
+        backend = sdpa_backend(library)
+        yard = held(library().transpose(1, 2), fa.flash_attention(
+            q, k, v, causal=True, window=window), 1e-3,
+            "scaled_dot_product_attention yardstick vs kernel (f32)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    print(f"[timing] scaled_dot_product_attention f32 forward: "
+          f"{json.dumps(backend)}", flush=True)
+    bound = attention_bound(b, s, s, h, kv, hd, causal=True, window=window,
+                            bytes_per_el=4,
+                            flops_per_s=H100_TF32_TENSOR_FLOPS)
+    # what the tile model and the build say of the kernel (not measured)
+    issued = b * fa.fwd_issued_flops(s, s, h, kv, hd, causal=True,
+                                     window=window, dtype=torch.float32)
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_tf32"))
+    model = dict(tiles=list(fa.fwd_tiles(hd, torch.float32)),
+                 issued_flops=issued, issued_flops_per_kept_pair=issued
+                 / (bound["pairs_per_head"] * h * b),
+                 smem_bytes=fa.smem_bytes(hd, torch.float32),
+                 registers_spill_stores={n: u for n, u in usage.items()
+                                         if f"ILi{fa.hd_bound(hd)}E" in n},
+                 # the modelled flop count over the measured ms
+                 modelled_issued_tflop_per_s_at_ms=issued
+                 / (kern_ms * 1e-3) / 1e12)
+    print(f"[model] flash fwd float32 kernel at hd {hd}: "
+          f"{json.dumps(model)}", flush=True)
+    row = dict(shape=list(dims), window=window, dtype="float32",
+               ms=kern_ms, ms_lse_off=lse_off_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, sdpa_allow_tf32=False,
+               sdpa_forward=backend, sdpa_vs_kernel_max_abs_err=yard,
+               **bound, roofline_share=bound["bound_ms"] / kern_ms,
+               tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
+               launches=launches)
+    print("[timing] " + json.dumps(row), flush=True)
+    return {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": SOURCE_FA_F32, "replaces": REPLACES_FA,
+        "launches": launches,
+        "max_abs_err": errs["float32"], "max_abs_err_lse": errs["lse"],
+        "limits": {"out": 2e-5, "lse": 1e-4},
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": lib_ms,
+        "times_are": f"one forward call at {shape}, float32, with the lse; "
+                     "ms_lse_off is the lse-off instantiation; the bound "
+                     "at the dense TF32 tensor peak (495 TFLOP/s); "
+                     "library_ms is scaled_dot_product_attention in "
+                     "float32 with the same boolean mask and "
+                     "allow_tf32 = False; launches are the counted f32 "
+                     "whole path's",
+        "ms_lse_off": lse_off_ms, "timing": row}
 
 
 def device_kernels(run) -> tuple:
@@ -2247,6 +2337,7 @@ def lm_train(dev) -> dict:
         with torch.no_grad():
             for n, p in model.named_parameters():
                 p.copy_(init[n])
+        zero_counts()
         loss = loss_fn(c, model, micro)
         names, leaves = zip(*model.named_parameters())
         grads = torch.autograd.grad(loss, leaves)
@@ -2254,12 +2345,25 @@ def lm_train(dev) -> dict:
                              schedule=c.schedule)
         ostate = opt.init_state(model)
         make_train_step(c, ocfg)(model, ostate, batch)
+        if impl == "flash_pallas":   # the float32 route, counted
+            launches_f32 = (fa.flash_attention_fwd.launches,
+                            fa.flash_attention_bwd_dq.launches,
+                            fa.flash_attention_bwd_dkdv.launches)
         got[impl] = dict(loss=float(loss.detach()), grads=dict(zip(names,
                                                                    grads)),
                          params={n: p.detach().clone()
                                  for n, p in model.named_parameters()})
         del ostate, loss, grads
         torch.cuda.empty_cache()
+    # a loss and its gradients, then a step of n_micro microbatches: each
+    # layer's forward twice (remat) and each backward kernel once a pass
+    passes = (1 + n_micro) * cfg2.n_layers
+    print(f"[main path train f32] flash launches (the float32 route): "
+          f"forward {launches_f32[0]}, dQ {launches_f32[1]}, dK/dV "
+          f"{launches_f32[2]}", flush=True)
+    check(launches_f32 == (2 * passes, passes, passes),
+          f"the f32 whole training path launched {launches_f32}, not "
+          f"{(2 * passes, passes, passes)}")
     k_, c_ = got["flash_pallas"], got["flash_jnp"]
     loss_err = abs(k_["loss"] - c_["loss"])
     check(math.isfinite(k_["loss"]) and loss_err < TRAIN_LOSS_TOL,
@@ -2358,24 +2462,6 @@ def lm_train(dev) -> dict:
         q, k, v, do, lse, delta, dk, dv, causal=True, window=window), 10, 2)
     plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, do, out, lse, causal=True, window=window), 3, 1)
-    # prev_ms: the same bf16 call on the float32-FMA kernels' bf16
-    # instantiation (SOURCE_FA_BWD_F32, the bf16 route before the
-    # tensor-core kernels), checked against the plain version first
-    bf16_route = fa._BWD_ROUTES[torch.bfloat16]
-    fa._BWD_ROUTES[torch.bfloat16] = fa._BWD_ROUTES[torch.float32]
-    try:
-        _, prev_share = bwd_vs_plain(
-            (q, k, v, do, out, lse), True, window, torch.bfloat16,
-            f"flash bwd bfloat16 {shape} (FMA kernels)")
-        prev_ms = median_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, do, out, lse, causal=True, window=window), 5, 1)
-        prev_dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, dq, causal=True, window=window), 5, 1)
-        prev_dkdv_ms = median_ms(lambda: fa.flash_attention_bwd_dkdv(
-            q, k, v, do, lse, delta, dk, dv, causal=True, window=window),
-            5, 1)
-    finally:
-        fa._BWD_ROUTES[torch.bfloat16] = bf16_route
     pos = torch.arange(TRAIN_SEQ, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
                                              > pos[:, None] - window)
@@ -2424,9 +2510,6 @@ def lm_train(dev) -> dict:
         + cfg.n_layers * n_micro * kern_ms
     row = dict(shape=[1, TRAIN_SEQ, h, kv, hd], window=window,
                dtype="bfloat16", ms=kern_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
-               prev_ms=prev_ms, prev_dq_ms=prev_dq_ms,
-               prev_dkdv_ms=prev_dkdv_ms,
-               prev_bf16_share_of_limit=prev_share,
                plain_ms=plain_ms, library_ms=lib_ms, **bound,
                roofline_share=bound["bound_ms"] / kern_ms,
                tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
@@ -2435,29 +2518,152 @@ def lm_train(dev) -> dict:
                flash_share_of_step=attn_ms / stats.step_ms,
                sdpa_backward=backend)
     print("[timing] " + json.dumps(row), flush=True)
-    return {
+    del q, k, v, do, out, lse, qt, kt, vt, dot, out_t, lib, mine
+    f32 = f32_bwd_timing(dev, shape, (1, TRAIN_SEQ, h, kv, hd), window,
+                         launches_f32, errs["float32"])
+    f32["whole_training_path_f32"] = whole
+    return [{
         "name": "flash_attention_bwd", "route": "cuda",
         "source": SOURCE_FA_BWD, "replaces": REPLACES_FA_BWD,
         "launches": dkdv_n, "launches_dq": dq_n, "launches_dkdv": dkdv_n,
-        "max_abs_err": max(errs["float32"], errs["bfloat16"]),
+        "max_abs_err": errs["bfloat16"],
         "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"], "library_ms": lib_ms,
         "times_are": "one backward call (delta, the dQ kernel and the dK/dV "
                      "kernel) at h2o-danube-1.8b's training layer shape (B1 "
                      "S8192 H32 KV8 hd80, causal, window 4096), bf16, on "
-                     "the tensor-core kernels; prev_ms is the same call "
-                     "on the float32-FMA kernels' bf16 instantiation; "
-                     "library_ms is "
+                     "the tensor-core kernels; library_ms is "
                      "torch.autograd.grad through "
                      "scaled_dot_product_attention with the same boolean "
                      "mask",
-        "source_f32": SOURCE_FA_BWD_F32,
-        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "prev_ms": prev_ms,
-        "max_abs_err_f32": errs["float32"],
-        "max_abs_err_bf16": errs["bfloat16"],
+        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
         "bf16_share_of_limit": shares["bfloat16"],
         "bf16_limit_control_window_minus_1": control,
-        "whole_training_path_f32": whole, "train": train, "timing": row}
+        "train": train, "timing": row},
+        f32]
+
+
+def f32_bwd_timing(dev, shape, dims, window, launches, err) -> dict:
+    """The float32 backward kernels timed at the training layer shape
+    ``dims`` = (B, S, H, KV, hd), the call and dQ and dK/dV apart, beside
+    the plain version, the bound at the dense TF32 tensor peak and
+    ``scaled_dot_product_attention``'s backward in float32 with
+    ``torch.backends.cuda.matmul.allow_tf32 = False``; returns the
+    ``flash_attention_bwd_f32`` entry of the ``kernels`` line
+    (``launches``: the counted f32 whole training path's (forward, dQ,
+    dK/dV))."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.roofline import (H100_TF32_TENSOR_FLOPS,
+                                           attention_bwd_bound)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, kv, hd = dims
+    gen = torch.Generator(dev).manual_seed(5)
+    q, k, v, do = (torch.randn(x, generator=gen, device=dev)
+                   for x in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd),
+                             (b, s, h, hd)))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    delta = (do * out).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    kern_ms = median_ms(lambda: fa.flash_attention_bwd(
+        q, k, v, do, out, lse, causal=True, window=window), 10, 2)
+    dq_ms = median_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, dq, causal=True, window=window), 10, 2)
+    dkdv_ms = median_ms(lambda: fa.flash_attention_bwd_dkdv(
+        q, k, v, do, lse, delta, dk, dv, causal=True, window=window), 10, 2)
+    plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, do, out, lse, causal=True, window=window), 3, 1)
+    pos = torch.arange(s, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # a float32 yardstick
+    try:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        backend = sdpa_backend(lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dot))
+        out_t = sdpa()
+        lib_ms = median_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), dot, retain_graph=True), 5, 1)
+        lib = torch.autograd.grad(out_t, (qt, kt, vt), dot)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    print(f"[timing] scaled_dot_product_attention f32 backward: "
+          f"{json.dumps(backend)}", flush=True)
+    mine = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                  window=window)
+    yard = {}
+    for name, a, want in zip(("dq", "dk", "dv"), mine, lib):
+        yard[name] = held(a, want.transpose(1, 2), 1e-3,
+                          f"SDPA f32 backward yardstick vs kernels: {name}")
+    # how far the kernels and the float32 plain version each are from the
+    # plain version run in float64 on the same out and lse
+    del lib, out_t
+    plain = fa.flash_attention_bwd_plain(q, k, v, do, out, lse, causal=True,
+                                         window=window)
+    exact = fa.flash_attention_bwd_plain(
+        *(x.double() for x in (q, k, v, do, out, lse)), causal=True,
+        window=window)
+    f64 = {"kernels": {}, "plain": {}}
+    for name, a, p, want in zip(("dq", "dk", "dv"), mine, plain, exact):
+        f64["kernels"][name] = held(
+            a, want, 1e-4, f"flash bwd float32 {shape}: {name} vs the "
+            "plain version in float64")
+        f64["plain"][name] = float((p.double() - want).abs().max())
+    print(f"[check] flash bwd float32 {shape}: the float32 plain version "
+          f"vs itself in float64: {json.dumps(f64['plain'])}", flush=True)
+    del plain, exact
+    bound = attention_bwd_bound(b, s, s, h, kv, hd, causal=True,
+                                window=window, bytes_per_el=4,
+                                flops_per_s=H100_TF32_TENSOR_FLOPS)
+    # what the tile model and the build say of the kernels (not measured)
+    issued = b * fa.bwd_issued_flops(s, s, h, kv, hd, causal=True,
+                                     window=window, dtype=torch.float32)
+    usage = _build.ptxas_usage(_build.build_log("flash_attention_bwd_tf32"))
+    model = dict(tiles=fa.bwd_tiles(hd, torch.float32), issued_flops=issued,
+                 issued_flops_per_kept_pair=issued
+                 / (bound["pairs_per_head"] * h * b),
+                 smem_bytes=[fa.bwd_smem_bytes(0, hd, torch.float32),
+                             fa.bwd_smem_bytes(1, hd, torch.float32)],
+                 registers_spill_stores={n: u for n, u in usage.items()
+                                         if f"ILi{fa.hd_bound(hd)}E" in n},
+                 modelled_issued_tflop_per_s_at_ms=issued
+                 / (kern_ms * 1e-3) / 1e12)
+    print(f"[model] flash bwd float32 kernels at hd {hd}: "
+          f"{json.dumps(model)}", flush=True)
+    row = dict(shape=list(dims), window=window, dtype="float32",
+               ms=kern_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, sdpa_allow_tf32=False,
+               sdpa_backward=backend, sdpa_vs_kernels_max_abs_err=yard,
+               max_abs_err_vs_float64=f64,
+               **bound, roofline_share=bound["bound_ms"] / kern_ms,
+               tflop_per_s=bound["flops"] / (kern_ms * 1e-3) / 1e12,
+               launches_fwd_dq_dkdv=list(launches))
+    print("[timing] " + json.dumps(row), flush=True)
+    return {
+        "name": "flash_attention_bwd_f32", "route": "cuda",
+        "source": SOURCE_FA_BWD_F32, "replaces": REPLACES_FA_BWD,
+        "launches": launches[2], "launches_dq": launches[1],
+        "launches_dkdv": launches[2], "max_abs_err": err, "limit": 1e-4,
+        "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"], "library_ms": lib_ms,
+        "times_are": f"one backward call (delta, dQ and dK/dV) at {shape}, "
+                     "float32; dq_ms and dkdv_ms the kernels alone; the "
+                     "bound at the dense TF32 tensor peak (495 TFLOP/s); "
+                     "library_ms is torch.autograd.grad through "
+                     "scaled_dot_product_attention in float32 with the "
+                     "same boolean mask and allow_tf32 = False; launches "
+                     "are the counted f32 whole training path's",
+        "dq_ms": dq_ms, "dkdv_ms": dkdv_ms, "timing": row}
 
 
 def family_batch(cfg, batch, seq, gen, dev):
@@ -2563,7 +2769,8 @@ def families(dev, entries) -> None:
     from repro_torch.train.train_step import loss_fn, make_train_step
 
     smi = smi_line()
-    counts = {"flash_attention": {}, "flash_attention_bwd": {}}
+    counts = {"flash_attention": {}, "flash_attention_bwd": {},
+              "flash_attention_f32": {}, "flash_attention_bwd_f32": {}}
 
     def no_other_kernel(what):
         check(st.ebisu2d_padded.launches == 0 and st3.ebisu3d_padded.launches
@@ -2799,6 +3006,10 @@ def families(dev, entries) -> None:
                       f"dQ {launched[1]}, dK/dV {launched[2]}", flush=True)
                 counts["flash_attention"][arch + " train"] = launched[0]
                 counts["flash_attention_bwd"][arch + " train"] = launched[2]
+                # f32 steps: the float32 kernels' launches
+                counts["flash_attention_f32"][arch + " train"] = launched[0]
+                counts["flash_attention_bwd_f32"][arch + " train"] = \
+                    launched[2]
             got[impl] = dict(loss=float(loss.detach()),
                              grads=dict(zip(names, grads)),
                              params={n: p.detach().clone()

@@ -9,9 +9,10 @@ held against it by the ``tests/test_torch_*.py`` suite.  Slice 1 is the
 ``csrc/stencil3d.cu``.  Slice 3 is LM serving of the dense family
 (``launch.serve`` → ``models.transformer.prefill``/``decode_step``),
 whose attention goes through ``api.compile_attention`` to the CUDA flash
-kernel ``csrc/flash_attention.cu``.  Later slices added training, the
-program's features, and the SSM, hybrid, MoE, encoder and VLM families
-(``models/ssm.py``, ``models/moe.py``).
+kernels (``csrc/flash_attention_mma.cu`` for bfloat16,
+``csrc/flash_attention_tf32.cu`` for float32).  Later slices added
+training, the program's features, and the SSM, hybrid, MoE, encoder and
+VLM families (``models/ssm.py``, ``models/moe.py``).
 
 Importing the package is cheap: it imports neither ``jax`` nor
 ``triton``, initializes no CUDA context and compiles nothing; each kernel

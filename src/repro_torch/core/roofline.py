@@ -55,6 +55,11 @@ class HardwareModel:
 # NVIDIA H100 SXM5 datasheet: 989 TFLOP/s dense bf16 on the tensor cores
 # (a datasheet number, not a measurement; it assumes the 700 W limit).
 H100_BF16_TENSOR_FLOPS = 989e12
+# NVIDIA H100 SXM5 datasheet: 495 TFLOP/s dense TF32 on the tensor cores
+# (a datasheet number, not a measurement; it assumes the 700 W limit):
+# the peak for float32 attention, whose products the kernels issue as
+# TF32 mma
+H100_TF32_TENSOR_FLOPS = 495e12
 # NVIDIA H100 SXM5 datasheet: 80 GB of HBM3 (a datasheet number;
 # ``hardware_for`` reads the card's own capacity where there is one).
 H100_HBM_BYTES = 80e9

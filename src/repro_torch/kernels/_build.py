@@ -33,10 +33,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = {"flash_attention": "flash_attention.cu",
-           "flash_attention_mma": "flash_attention_mma.cu",
-           "flash_attention_bwd": "flash_attention_bwd.cu",
-           "flash_attention_bwd_mma": "flash_attention_bwd_mma.cu"}
+SOURCES = {"flash_attention_mma": "flash_attention_mma.cu",
+           "flash_attention_tf32": "flash_attention_tf32.cu",
+           "flash_attention_bwd_mma": "flash_attention_bwd_mma.cu",
+           "flash_attention_bwd_tf32": "flash_attention_bwd_tf32.cu"}
 TEMPLATES = {"stencil2d": ("stencil2d.cu", "stencil2d_taps.cuh"),
              "stencil3d": ("stencil3d.cu", "stencil3d_taps.cuh")}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

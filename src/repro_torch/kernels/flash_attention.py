@@ -1,24 +1,25 @@
 """Flash attention on the card: the wrappers of the CUDA forward kernels
-(``csrc/flash_attention_mma.cu`` for bfloat16, ``csrc/flash_attention.cu``
-for float32) and backward kernels (``csrc/flash_attention_bwd_mma.cu`` for
-bfloat16, ``csrc/flash_attention_bwd.cu`` for float32), their plain
-PyTorch versions, and the autograd function that joins them.
+(``csrc/flash_attention_mma.cu`` for bfloat16,
+``csrc/flash_attention_tf32.cu`` for float32) and backward kernels
+(``csrc/flash_attention_bwd_mma.cu`` for bfloat16,
+``csrc/flash_attention_bwd_tf32.cu`` for float32), their plain PyTorch
+versions, and the autograd function that joins them.
 
 Counterpart of the reference's Pallas kernels
 ``repro/kernels/flash_attention.py::_kernel`` (launched by
 ``flash_attention_pallas``) and ``::_fwd_kernel_lse`` (launched by
 ``flash_attention_pallas_fwd``): each forward source ports both, as two
-instantiations on whether the per-row logsumexp is written.  bfloat16
-inputs run ``csrc/flash_attention_mma.cu`` (mma.sync on the tensor cores,
-p carried as a bf16 hi/lo pair), float32 inputs
-``csrc/flash_attention.cu`` (float32 FMA).  The reference's
+instantiations on whether the per-row logsumexp is written.  All four
+sources run mma.sync on the tensor cores: bfloat16 inputs
+``csrc/flash_attention_mma.cu`` (p carried as a bf16 hi/lo pair),
+float32 inputs ``csrc/flash_attention_tf32.cu`` (3xTF32: every operand
+split into TF32 hi and lo, three mma a product).  The reference's
 ``::_bwd_kernel`` (``flash_attention_pallas_bwd``) becomes two
 kernels, one query-major for dq and one key-major for dk and dv (summed
 over each GQA group in the kernel), in two sources: bfloat16 inputs run
-``csrc/flash_attention_bwd_mma.cu`` (mma.sync on the tensor cores, p and
-ds carried as bf16 hi/lo pairs), float32 inputs
-``csrc/flash_attention_bwd.cu`` (float32 FMA).  Its ``custom_vjp``
-becomes :func:`flash_attention_trainable`.
+``csrc/flash_attention_bwd_mma.cu`` (p and ds carried as bf16 hi/lo
+pairs), float32 inputs ``csrc/flash_attention_bwd_tf32.cu`` (3xTF32).
+Its ``custom_vjp`` becomes :func:`flash_attention_trainable`.
 
     out, lse = flash_attention_fwd(q, k, v, causal=True, window=4096)
 
@@ -30,9 +31,9 @@ q is ``(B, S, H, hd)``, k and v ``(B, Sk, KV, hd)``; out is
     the inputs' dtype (or raises) and adds one to
     ``flash_attention_fwd.launches`` whichever source runs.  Both read any
     ``head_dim`` that is a multiple of 16 up to 256, in place through the
-    strides (the last dim must be dense).  The bfloat16 kernel copies
-    rows by 16 bytes: an input whose rows are not 16-byte aligned is
-    copied to a contiguous tensor first, and each copy adds one to
+    strides (the last dim must be dense).  Both kernels copy rows by 16
+    bytes: an input whose rows are not 16-byte aligned is copied to a
+    contiguous tensor first, and each copy adds one to
     ``flash_attention_fwd.copies``.  Nothing falls back: a build or
     launch error raises.
   * On a CPU tensor it runs :func:`flash_attention_fwd_plain`, the same
@@ -47,11 +48,11 @@ q is ``(B, S, H, hd)``, k and v ``(B, Sk, KV, hd)``; out is
     kernel) and launches the dQ kernel (``flash_attention_bwd_dq``) and
     the dK/dV kernel (``flash_attention_bwd_dkdv``) of the inputs'
     dtype, each adding one to its own ``.launches`` whichever source
-    runs.  dq, dk and dv come back in the inputs' dtype.  The bfloat16
-    kernels copy rows by 16 bytes: an input whose rows are not 16-byte
-    aligned is copied to a contiguous tensor first, and each copy adds
-    one to ``flash_attention_bwd.copies``.  Nothing falls back: a build
-    or launch error raises.
+    runs.  dq, dk and dv come back in the inputs' dtype.  The kernels
+    copy rows by 16 bytes: an input whose rows are not 16-byte aligned
+    is copied to a contiguous tensor first, and each copy adds one to
+    ``flash_attention_bwd.copies``.  Nothing falls back: a build or
+    launch error raises.
   * On a CPU tensor it runs :func:`flash_attention_bwd_plain`, the same
     closed form over kv chunks in float32, with no S × Sk tensor and no
     autograd of the plain forward.
@@ -61,8 +62,8 @@ gets no gradient from the backward, as in the reference's kernel; the
 dense oracle's autograd would give dv a share of its uniform average.
 
 The reference's ``q_chunk``/``kv_chunk`` do not reach the kernels: their
-tiles (:func:`fwd_tiles` and :func:`bwd_tiles` for the bfloat16 kernels;
-64 queries × 64 keys in the float32 forward) are their own.  The chunk
+tiles (:func:`fwd_tiles` and :func:`bwd_tiles`, per dtype) are their
+own.  The chunk
 sizes stay in ``AttentionSpec``, whose divisibility contract the program
 enforces.
 """
@@ -76,8 +77,8 @@ import torch
 from repro_torch.core.online_softmax import attention_mask, online_softmax
 from repro_torch.kernels import _build
 
-MAX_HEAD_DIM = 256      # FA_MAX_HD in csrc/flash_attention.cu, FFM_MAX_HD
-                        # in csrc/flash_attention_mma.cu
+MAX_HEAD_DIM = 256      # FFM_MAX_HD in csrc/flash_attention_mma.cu,
+                        # FFT_MAX_HD in csrc/flash_attention_tf32.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -154,9 +155,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_rows_aligned_or_copy(x, flash_attention_fwd)
-                   for x in (q, k, v))
+    q, k, v = (_rows_aligned_or_copy(x, flash_attention_fwd)
+               for x in (q, k, v))
     out, lse = _launch(q, k, v, causal, window, with_lse)
     flash_attention_fwd.launches += 1
     return out, lse
@@ -177,8 +177,8 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 # string); both entry points take the same arguments
 _FWD_ROUTES = {torch.bfloat16: ("flash_attention_mma", "flash_fwd_mma",
                                 "flash_fwd_mma_error_string"),
-               torch.float32: ("flash_attention", "flash_fwd",
-                               "flash_error_string")}
+               torch.float32: ("flash_attention_tf32", "flash_fwd_tf32",
+                               "flash_fwd_tf32_error_string")}
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
              + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_float,
@@ -198,9 +198,9 @@ def _launch(q, k, v, causal, window, with_lse):
         if x.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim must be dense (stride 1), "
                              f"got strides {x.stride()}")
-        if q.dtype == torch.bfloat16 and not _rows_aligned(x):
+        if not _rows_aligned(x):
             raise ValueError(
-                f"the bfloat16 forward kernel needs 16-byte aligned rows: "
+                f"the forward kernels need 16-byte aligned rows: "
                 f"{name} has pointer {x.data_ptr():#x} and strides "
                 f"{x.stride()} (flash_attention_fwd copies such inputs)")
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -232,26 +232,41 @@ def _launch(q, k, v, causal, window, with_lse):
     return out, lse
 
 
-def smem_bytes(hd: int) -> int:
-    """Shared memory one CTA of the bfloat16 forward kernel takes at
+def smem_bytes(hd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory one CTA of the ``dtype`` forward kernel takes at
     ``hd``, as the library computes it (builds the library if needed)."""
-    fn = _build.library("flash_attention_mma").flash_fwd_mma_smem_bytes
+    name, entry, _ = _FWD_ROUTES[dtype]
+    fn = getattr(_build.library(name), entry + "_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return fn(hd)
 
 
-def fwd_tiles(hd: int) -> tuple[int, int]:
-    """The bfloat16 forward kernel's (queries, keys) tile at ``hd``, as
-    ``csrc/flash_attention_mma.cu`` instantiates it: 32-key tiles above
-    hd 128, where the accumulators take 128 registers a thread."""
-    return 64, (64 if hd <= 128 else 32)
+def hd_bound(hd: int) -> int:
+    """The head-dim bound of the kernel instantiation that serves ``hd``
+    in every flash source (64, 80, 128 or 256: the template argument its
+    ptxas names carry); it runs every hd up to the bound."""
+    return 64 if hd <= 64 else 80 if hd <= 80 else 128 if hd <= 128 else 256
+
+
+def fwd_tiles(hd: int, dtype: torch.dtype = torch.bfloat16
+              ) -> tuple[int, int]:
+    """The ``dtype`` forward kernel's (queries, keys) tile at ``hd``, as
+    its source instantiates it: the bfloat16 kernel
+    (``csrc/flash_attention_mma.cu``) takes 32-key tiles above hd 128,
+    where the accumulators take 128 registers a thread; the float32 one
+    (``csrc/flash_attention_tf32.cu``), whose tiles take twice the bytes
+    and whose split operands and accumulators twice the registers, above
+    hd 80."""
+    if dtype == torch.float32:
+        return 64, (64 if hd_bound(hd) <= 80 else 32)
+    return 64, (64 if hd_bound(hd) <= 128 else 32)
 
 
 def fwd_key_tile_range(q0: int, s: int, sk: int, bq: int, bk: int, *,
                        causal: bool, window: int | None) -> tuple[int, int]:
     """The key tiles ``[t_lo, t_hi)`` the forward kernels run for the
-    query tile starting at row ``q0``, as ``csrc/flash_attention.cu`` and
-    ``csrc/flash_attention_mma.cu`` compute them: the keys its rows keep,
+    query tile starting at row ``q0``, as ``csrc/flash_attention_mma.cu``
+    and ``csrc/flash_attention_tf32.cu`` compute them: the keys its rows keep,
     or every key tile when one of its rows keeps no key (S ≥ Sk + window),
     so that such a row averages all keys."""
     win = window or 0
@@ -266,19 +281,22 @@ def fwd_key_tile_range(q0: int, s: int, sk: int, bq: int, bk: int, *,
 
 
 def fwd_issued_flops(s: int, sk: int, h: int, kv: int, hd: int, *,
-                     causal: bool, window: int | None) -> int:
-    """Tensor-core flops the bfloat16 forward kernel issues for one batch
+                     causal: bool, window: int | None,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Tensor-core flops the ``dtype`` forward kernel issues for one batch
     row: every (query, key) pair of every tile it runs, ragged edges and
-    masked pairs included, at ``6·hd`` (``q·kᵀ``, then ``p·v`` twice for
-    the hi/lo pair), over ``fwd_key_tile_range``.  ``kv`` does not change
-    the count: each query head runs its own tiles."""
-    bq, bk = fwd_tiles(hd)
+    masked pairs included, over ``fwd_key_tile_range``: ``6·hd`` in
+    bfloat16 (``q·kᵀ``, then ``p·v`` twice for the hi/lo pair), ``12·hd``
+    in float32 (both products three times, 3xTF32).  ``kv`` does not
+    change the count: each query head runs its own tiles."""
+    bq, bk = fwd_tiles(hd, dtype)
+    per_pair = 12 * hd if dtype == torch.float32 else 6 * hd
     tiles = 0
     for q0 in range(0, s, bq):
         t_lo, t_hi = fwd_key_tile_range(q0, s, sk, bq, bk, causal=causal,
                                         window=window)
         tiles += t_hi - t_lo
-    return h * tiles * bk * bq * 6 * hd
+    return h * tiles * bk * bq * per_pair
 
 
 # ------------------------------------------------------------- backward ----
@@ -353,9 +371,8 @@ def flash_attention_bwd(q, k, v, do, out, lse, *, causal=True, window=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, "
                          f"got {q.device}")
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = (_rows_aligned_or_copy(x, flash_attention_bwd)
-                       for x in (q, k, v, do))
+    q, k, v, do = (_rows_aligned_or_copy(x, flash_attention_bwd)
+                   for x in (q, k, v, do))
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -391,7 +408,7 @@ flash_attention_bwd_dkdv.launches = 0
 # the backward kernels per dtype: (library, C entry point); both entry
 # points take the same arguments
 _BWD_ROUTES = {torch.bfloat16: ("flash_attention_bwd_mma", "flash_bwd_mma"),
-               torch.float32: ("flash_attention_bwd", "flash_bwd")}
+               torch.float32: ("flash_attention_bwd_tf32", "flash_bwd_tf32")}
 _BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                  + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_float,
@@ -399,11 +416,12 @@ _BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
 
 
 def _rows_aligned(x) -> bool:
-    """Whether the bfloat16 kernels' 16-byte copies reach every row of
-    ``x`` in place: a 16-byte aligned pointer and (batch, seq, head)
-    strides in multiples of 8 elements (where the dim is longer than 1)."""
+    """Whether the kernels' 16-byte copies reach every row of ``x`` in
+    place: a 16-byte aligned pointer and (batch, seq, head) strides in
+    multiples of 16 bytes (where the dim is longer than 1)."""
     return x.data_ptr() % 16 == 0 and all(
-        x.stride(i) % 8 == 0 or x.shape[i] == 1 for i in range(3))
+        x.stride(i) * x.element_size() % 16 == 0 or x.shape[i] == 1
+        for i in range(3))
 
 
 def _rows_aligned_or_copy(x, counted_in):
@@ -440,13 +458,12 @@ def _bwd_call_args(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({b}, {h}, {s}) "
                              f"float32 tensor")
-    if q.dtype == torch.bfloat16:
-        for name, x in zip(("q", "k", "v", "do", "dq", "dk", "dv"), tensors):
-            if not _rows_aligned(x):
-                raise ValueError(
-                    f"the bfloat16 backward kernels need 16-byte aligned "
-                    f"rows: {name} has pointer {x.data_ptr():#x} and strides "
-                    f"{x.stride()} (flash_attention_bwd copies such inputs)")
+    for name, x in zip(("q", "k", "v", "do", "dq", "dk", "dv"), tensors):
+        if not _rows_aligned(x):
+            raise ValueError(
+                f"the backward kernels need 16-byte aligned rows: {name} "
+                f"has pointer {x.data_ptr():#x} and strides {x.stride()} "
+                f"(flash_attention_bwd copies such inputs)")
     strides = (ctypes.c_longlong * 21)(*(
         x.stride(i) for x in tensors for i in range(3)))
     args = (kernel, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -484,35 +501,45 @@ def _launch_bwd(kernel, q, k, v, do, lse, delta, dq, dk, dv, causal,
             f"window={window}")
 
 
-def bwd_smem_bytes(kernel: int, hd: int) -> int:
-    """Shared memory one CTA of the bfloat16 backward kernel ``kernel`` (0
-    dQ, 1 dK/dV) takes at ``hd`` (builds the library if needed)."""
-    name, prefix = _BWD_ROUTES[torch.bfloat16]
+def bwd_smem_bytes(kernel: int, hd: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory one CTA of the ``dtype`` backward kernel ``kernel``
+    (0 dQ, 1 dK/dV) takes at ``hd`` (builds the library if needed)."""
+    name, prefix = _BWD_ROUTES[dtype]
     fn = getattr(_build.library(name), prefix + "_smem_bytes")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     return fn(kernel, hd)
 
 
-def bwd_tiles(hd: int) -> dict:
-    """The bfloat16 backward kernels' tiles at ``hd``, as
-    ``csrc/flash_attention_bwd_mma.cu`` instantiates them: dQ's (queries,
-    keys), dK/dV's (keys, queries), and the dK/dV columns summed per
-    pass (s and dp are recomputed once per pass)."""
-    bound = 64 if hd <= 64 else 80 if hd <= 80 else 128 if hd <= 128 \
-        else 256
+def bwd_tiles(hd: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The ``dtype`` backward kernels' tiles at ``hd``, as their source
+    instantiates them: dQ's (queries, keys), dK/dV's (keys, queries), and
+    the dK/dV columns summed per pass (s and dp are recomputed once per
+    pass).  The float32 kernels (``csrc/flash_attention_bwd_tf32.cu``),
+    whose tiles take twice the bytes and whose split operands and
+    accumulators twice the registers, stream shorter tiles than the
+    bfloat16 ones (``csrc/flash_attention_bwd_mma.cu``)."""
+    bound = hd_bound(hd)
+    if dtype == torch.float32:
+        return dict(dq=(64, 32 if bound <= 128 else 16),
+                    dkdv=(64, 32 if bound == 64 else 16),
+                    columns_per_pass=min(bound, 128))
     return dict(dq=(64, 64 if bound <= 128 else 32),
                 dkdv=(64, 64 if bound <= 80 else 32),
                 columns_per_pass=min(bound, 128))
 
 
 def bwd_issued_flops(s: int, sk: int, h: int, kv: int, hd: int, *,
-                     causal: bool, window: int | None) -> int:
-    """Tensor-core flops the bfloat16 backward kernels issue for one batch
-    row: every (query, key) pair of every tile they run, ragged edges
-    and masked pairs included, at ``8·hd`` in dQ (s, dp, and ds·k as a
-    hi/lo pair) and ``(4·passes + 8)·hd`` in dK/dV (s and dp per pass,
-    pᵀ·do and dsᵀ·q as hi/lo pairs), over the kernels' own tile ranges."""
-    t = bwd_tiles(hd)
+                     causal: bool, window: int | None,
+                     dtype: torch.dtype = torch.bfloat16) -> int:
+    """Tensor-core flops the ``dtype`` backward kernels issue for one
+    batch row: every (query, key) pair of every tile they run, ragged
+    edges and masked pairs included, over the kernels' own tile ranges.
+    bfloat16: ``8·hd`` in dQ (s, dp, and ds·k as a hi/lo pair) and
+    ``(4·passes + 8)·hd`` in dK/dV (s and dp per pass, pᵀ·do and dsᵀ·q as
+    hi/lo pairs).  float32, every product three times (3xTF32): ``18·hd``
+    in dQ and ``(12·passes + 12)·hd`` in dK/dV."""
+    t = bwd_tiles(hd, dtype)
     win = window or 0
     (bq, bk), (ck, cq) = t["dq"], t["dkdv"]
     passes = -(-hd // t["columns_per_pass"])
@@ -528,6 +555,9 @@ def bwd_issued_flops(s: int, sk: int, h: int, kv: int, hd: int, *,
         q_hi = min(s, min(k0 + ck, sk) - 1 + win) if win else s
         if q_hi > q_lo:
             dkdv_pairs += (-(-q_hi // cq) - q_lo // cq) * cq * ck
+    if dtype == torch.float32:
+        return (h * dq_pairs * 18 * hd
+                + h * dkdv_pairs * (12 * passes + 12) * hd)
     return (h * dq_pairs * 8 * hd
             + h * dkdv_pairs * (4 * passes + 8) * hd)
 

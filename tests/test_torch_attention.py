@@ -30,6 +30,7 @@ import torch
 from repro.api import attention as rapi
 from repro.models import attention as rattn
 from repro_torch.api import attention as tapi
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.models import attention as tattn
 
@@ -420,3 +421,13 @@ def test_auto_takes_the_kernel_where_it_launches(hd, dtype):
     assert auto._resolve_impl(96, 96, CUDA) == "chunked"
     assert set(tfa._FWD_ROUTES) == set(tfa._BWD_ROUTES) == set(
         tfa._DTYPE_CODE)
+    # each dtype's route is a tensor-core library the build knows: bf16
+    # pairs, float32 3xTF32
+    libs = {dt: (tfa._FWD_ROUTES[dt][0], tfa._BWD_ROUTES[dt][0])
+            for dt in tfa._DTYPE_CODE}
+    assert libs == {torch.bfloat16: ("flash_attention_mma",
+                                     "flash_attention_bwd_mma"),
+                    torch.float32: ("flash_attention_tf32",
+                                    "flash_attention_bwd_tf32")}
+    assert {x for pair in libs.values() for x in pair} == set(
+        _build.SOURCES)

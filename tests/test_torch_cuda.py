@@ -664,7 +664,8 @@ def qkv(b, s, h, kv, hd, dtype, device, seed=0):
 def test_flash_kernel_matches_plain(cuda_device, hd, groups, causal, window,
                                     dtype):
     """Out and lse of the kernel of each dtype (bf16: the tensor-core
-    kernel; float32: the FMA kernel) against its plain version; S = 200
+    kernel; float32: the 3xTF32 tensor-core kernel) against its plain
+    version; S = 200
     is no multiple of the 64-row tile, windows of 64 and 32 sit on the
     64- and 32-key tile edges, and a window of 47 puts a warp's 16 rows
     on a window edge (the bf16 kernel's keep-whole test).  Tolerances:
@@ -787,8 +788,9 @@ def test_reduced_serve_kernel_path_matches_chunked(cuda_device, name):
 @pytest.mark.cuda
 def test_flash_fwd_dispatch_reaches_the_kernel_of_each_dtype(cuda_device,
                                                              monkeypatch):
-    """A CUDA bf16 input loads the tensor-core library, a float32 one the
-    FMA library; neither reaches the plain version (made to raise)."""
+    """A CUDA bf16 input loads the bf16 tensor-core library, a float32
+    one the 3xTF32 library; neither reaches the plain version (made to
+    raise)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
@@ -805,7 +807,7 @@ def test_flash_fwd_dispatch_reaches_the_kernel_of_each_dtype(cuda_device,
     monkeypatch.setattr(_build, "library", record)
     monkeypatch.setattr(fa, "flash_attention_fwd_plain", refuse)
     for dtype, name in ((torch.bfloat16, "flash_attention_mma"),
-                        (torch.float32, "flash_attention")):
+                        (torch.float32, "flash_attention_tf32")):
         q, k, v = qkv(1, 130, 4, 2, 80, dtype, cuda_device)
         before = fa.flash_attention_fwd.launches
         out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
@@ -1124,6 +1126,140 @@ def test_flash_bwd_mma_tiles_match_the_library(cuda_device):
             (2 * t["dq"][0] + 4 * t["dq"][1]) * row
         assert fa.bwd_smem_bytes(1, hd) == \
             (2 * t["dkdv"][0] + 4 * t["dkdv"][1]) * row + 16 * t["dkdv"][1]
+
+
+# the float32 route: csrc/flash_attention_tf32.cu and
+# csrc/flash_attention_bwd_tf32.cu (3xTF32 on the tensor cores)
+@pytest.mark.cuda
+def test_flash_tf32_builds_have_no_spills(cuda_device):
+    """ptxas's report of the 3xTF32 kernels: every instantiation (head dim
+    bounds 64, 80, 128 and 256; the forward with the lse on and off)
+    exists and stores no spill."""
+    from repro_torch.kernels import _build
+
+    fwd = _build.ptxas_usage(_build.build_log("flash_attention_tf32"))
+    bwd = _build.ptxas_usage(_build.build_log("flash_attention_bwd_tf32"))
+    assert len(fwd) == 8 and len(bwd) == 8, (fwd, bwd)
+    for bound in (64, 80, 128, 256):
+        for usage, kerns in ((fwd, ("Lb0E", "Lb1E")),
+                             (bwd, ("fbt_dq_kernel", "fbt_dkdv_kernel"))):
+            for kern in kerns:
+                found = [u for name, u in usage.items()
+                         if kern in name and f"ILi{bound}E" in name]
+                assert len(found) == 1, (kern, bound, usage)
+                assert found[0][1] == 0, (kern, bound, found)
+
+
+@pytest.mark.cuda
+def test_flash_tf32_tiles_match_the_library(cuda_device):
+    """``fwd_tiles`` and ``bwd_tiles`` for float32 (which the issued-flop
+    counts use) mirror the CUDA sources: the shared memory each library
+    reports is what those tiles take (rows of hd + 4 floats), at every
+    hd, and fits one CTA's 227 KB."""
+    from repro_torch.kernels import flash_attention as fa
+
+    f32 = torch.float32
+    for hd in range(16, 257, 16):
+        row = (hd + 4) * 4
+        bq, bk = fa.fwd_tiles(hd, f32)
+        assert fa.smem_bytes(hd, f32) == (bq + 4 * bk) * row
+        t = fa.bwd_tiles(hd, f32)
+        assert fa.bwd_smem_bytes(0, hd, f32) == \
+            (2 * t["dq"][0] + 4 * t["dq"][1]) * row
+        assert fa.bwd_smem_bytes(1, hd, f32) == \
+            (2 * t["dkdv"][0] + 4 * t["dkdv"][1]) * row + 16 * t["dkdv"][1]
+        assert max(fa.smem_bytes(hd, f32), fa.bwd_smem_bytes(0, hd, f32),
+                   fa.bwd_smem_bytes(1, hd, f32)) <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", list(range(16, 257, 16)))
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("causal,window", BWD_MASKS,
+                         ids=["causal", "window", "none"])
+def test_flash_tf32_kernels_match_plain(cuda_device, monkeypatch, hd,
+                                        groups, causal, window):
+    """The 3xTF32 forward and backward kernels against their plain
+    versions at every head dim they serve, with ragged S and Sk (no
+    multiple of any tile; S > Sk at odd multiples of 16, S < Sk at even
+    ones): out within 2e-5, lse within 1e-4, each gradient within 1e-4.
+    The plain versions are made to raise during the kernels' calls: a
+    float32 CUDA input never reaches them."""
+    from repro_torch.kernels import flash_attention as fa
+
+    s, sk = (133, 97) if hd // 16 % 2 else (97, 160)
+    rng = np.random.default_rng(hd + groups)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        shape, dtype=np.float32)).to(cuda_device)
+        for shape in ((2, s, 2 * groups, hd), (2, sk, 2, hd),
+                      (2, sk, 2, hd), (2, s, 2 * groups, hd)))
+    want, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                  window=window)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, do, want, want_lse,
+                                              causal=causal, window=window)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a float32 CUDA input reached the plain version")
+
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain", refuse)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", refuse)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention_bwd(q, k, v, do, want, want_lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    for a, b in zip(got, want_grads):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_tf32_repeat_is_bit_identical(cuda_device):
+    """No atomics and a fixed order of sums: two launches of the float32
+    forward and backward agree bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(1, 1024, 8, 2, 80, torch.float32, cuda_device, seed=5)
+    do = qkv(1, 1024, 8, 2, 80, torch.float32, cuda_device, seed=6)[0]
+    first = fa.flash_attention_fwd(q, k, v, causal=True, window=256)
+    again = fa.flash_attention_fwd(q, k, v, causal=True, window=256)
+    grads = [fa.flash_attention_bwd(q, k, v, do, *first, causal=True,
+                                    window=256) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(first + grads[0], again + grads[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_tf32_unaligned_rows_are_copied_and_counted(cuda_device):
+    """The float32 kernels copy rows by 16 bytes too: q at a 4-byte offset
+    and k with a row stride of hd + 2 are copied (and counted) before the
+    forward's launch, do so before the backward's; the results equal the
+    aligned inputs' bit for bit, and a kernel launched directly on an
+    unaligned input refuses it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = qkv(2, 96, 4, 2, 32, torch.float32, cuda_device, seed=7)
+    do = qkv(2, 96, 4, 2, 32, torch.float32, cuda_device, seed=8)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=24)
+    grads = fa.flash_attention_bwd(q, k, v, do, out, lse, causal=True,
+                                   window=24)
+    buf = torch.empty(q.numel() + 4, device=cuda_device)
+    q_odd = buf[1:1 + q.numel()].view(q.shape)
+    q_odd.copy_(q)
+    k_wide = torch.zeros((2, 96, 2, 34), device=cuda_device)[..., :32]
+    k_wide.copy_(k)
+    before = (fa.flash_attention_fwd.copies, fa.flash_attention_bwd.copies)
+    got = fa.flash_attention_fwd(q_odd, k_wide, v, causal=True, window=24)
+    got_grads = fa.flash_attention_bwd(q_odd, k_wide, v, do, out, lse,
+                                       causal=True, window=24)
+    assert (fa.flash_attention_fwd.copies, fa.flash_attention_bwd.copies) \
+        == (before[0] + 2, before[1] + 2)
+    for a, b in zip(got + got_grads, (out, lse) + grads):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(q_odd, k, v, True, 24, True)
 
 
 @pytest.mark.cuda

@@ -23,9 +23,13 @@ since it computes in float32 between its input and output casts.
 Tolerances: 2e-5 for forward outputs, 1e-4 for gradients in float32, 0.06
 in bfloat16 (the reference suite's).
 
-``emulate_bwd_tiles`` replays the float32 CUDA kernels' tile schedule
-(query-major dQ; key-major dK/dV with the GQA group loop and both tile
-skips) and is held against the plain version.  ``emulate_bwd_mma_tiles``
+``emulate_bwd_tf32_tiles`` replays the float32 CUDA kernels
+(``csrc/flash_attention_bwd_tf32.cu``): their tile schedule (query-major
+dQ; key-major dK/dV with the GQA group loop and both tile skips, at
+their own tiles) and their 3xTF32 rounding, ``cvt.rna`` emulated bit for
+bit (``tests/tf32_ref.py``); it is held within 1e-4 of the plain version
+and of ``jax.vjp`` of the reference's dense oracle, and the one-pass
+TF32 replay is the control the limit must refuse.  ``emulate_bwd_mma_tiles``
 replays the bfloat16 tensor-core kernels' schedule (their own tiles) and
 rounding (bf16 tiles, p and ds as bf16 hi/lo pairs into float32 sums) and
 is held against the plain version within the bf16 limit 1e-4 +
@@ -47,6 +51,7 @@ from repro_torch.api import attention as tapi
 from repro_torch.core import roofline as trl
 from repro_torch.core.online_softmax import attention_mask
 from repro_torch.kernels import flash_attention as tfa
+from tf32_ref import mm
 
 B, S, KV, CHUNK = 2, 64, 2, 16
 GROUPS = [1, 2, 4]
@@ -210,64 +215,81 @@ def test_rows_that_keep_no_key_get_no_gradient():
             np.testing.assert_allclose(a.numpy(), b, atol=GRAD, rtol=GRAD)
 
 
-# --------------------------------------------------- the kernels' schedule ----
-def emulate_bwd_tiles(q, k, v, do, out, lse, *, causal, window):
-    """Replay the two CUDA kernels' schedule in float32 torch: the dQ
-    kernel's (batch·head, 64-query tile) CTAs, each over the key tiles
-    its rows keep; the dK/dV kernel's (batch, kv head, key tile) CTAs,
-    each over the G heads of its group and the query tiles that keep
-    some key of the tile.  Key tiles are 64 keys up to hd 128, else 32;
-    the ranges are the kernels' own formulas, so a tile they skip wrongly
-    shows up as a gradient that differs from the plain version."""
+# --------------------------------------------- the float32 kernels ----
+LOG2E = 1.4426950408889634
+
+
+def emulate_bwd_tf32_tiles(q, k, v, do, out, lse, *, causal, window,
+                           passes=3):
+    """Replay the float32 kernels (``csrc/flash_attention_bwd_tf32.cu``)
+    in float32 torch, every (batch, head) at once, at the tiles
+    ``bwd_tiles(hd, float32)`` gives: the dQ kernel's query tiles over
+    the key tiles their rows keep; the dK/dV kernel's key tiles over the
+    G heads of each group and the query tiles that keep some key of the
+    tile.  The ranges are the kernels' own formulas, so a tile they skip
+    wrongly shows up as a gradient that differs from the plain version.
+    Every product is 3xTF32 (``passes=1``: one TF32 pass) with
+    ``cvt.rna`` emulated bit for bit; p = 2^(s·scale·log2 e − lse·log2 e)
+    where the mask keeps, ds = p·(dp − δ)·scale.  Returns ``(dq, dk, dv,
+    issued_flops)``, the flops counted over every pair of every tile
+    run, as the kernels issue them."""
     b, s, h, hd = q.shape
     sk, kvh_n = k.shape[1], k.shape[2]
     grp = h // kvh_n
-    bq, bk = 64, (64 if hd <= 128 else 32)
-    scale = 1.0 / math.sqrt(hd)
-    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    delta = (dof * out.float()).sum(-1)                    # (b, s, h)
-    dq = torch.zeros(qf.shape)
-    dk = torch.zeros(kf.shape)
-    dv = torch.zeros(vf.shape)
+    tiles = tfa.bwd_tiles(hd, torch.float32)
+    (dq_bq, dq_bk), (kv_bk, kv_bq) = tiles["dq"], tiles["dkdv"]
+    col_passes = -(-hd // tiles["columns_per_pass"])
+    f32 = torch.float32
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=f32)
+    c = scale * torch.tensor(LOG2E, dtype=f32)     # the kernels' scale_log2
+    qf, dof = (x.float().permute(0, 2, 1, 3) for x in (q, do))  # (b,h,s,d)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (b,kv,sk,d)
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1)  # (b,h,s)
+    lse2 = lse.float() * torch.tensor(LOG2E, dtype=f32)
+    dq, dk, dv = (torch.zeros(x.shape) for x in (qf, kf, vf))
     win = window if window is not None else 0
+    flops = 0
 
-    def tile(bi, hh, q0, k0):
-        """p and ds of one (query tile, key tile) pair, (qt, kt)."""
-        kvh = hh // grp
-        qs = slice(q0, min(q0 + bq, s))
-        ks = slice(k0, min(k0 + bk, sk))
-        sc = qf[bi, qs, hh] @ kf[bi, ks, kvh].T * scale
+    def tile(heads, q0, bq, k0, bk):
+        """p and ds of one (query tile, key tile) pair for ``heads``."""
+        qs, ks = slice(q0, min(q0 + bq, s)), slice(k0, min(k0 + bk, sk))
+        kr, vr = (x[:, heads // grp, ks] for x in (kf, vf))
+        sc = mm(qf[:, heads, qs], kr.transpose(-1, -2), passes)
+        dp = mm(dof[:, heads, qs], vr.transpose(-1, -2), passes)
         ok = attention_mask(torch.arange(s)[qs], torch.arange(sk)[ks],
                             causal=causal, window=window)
-        p = torch.where(ok, torch.exp(sc - lse[bi, hh, qs, None]), 0.0)
-        dp = dof[bi, qs, hh] @ vf[bi, ks, kvh].T
-        ds = p * (dp - delta[bi, qs, hh, None]) * scale
-        return qs, ks, kvh, p, ds
+        p = torch.where(ok, torch.exp2(sc * c - lse2[:, heads, qs, None]),
+                        0.0)
+        ds = p * (dp - delta[:, heads, qs, None]) * scale
+        return qs, ks, kr, p, ds
 
-    for bi, hh, t in itertools.product(range(b), range(h),
-                                       range(-(-s // bq))):
-        q0 = t * bq
-        q_last = min(q0 + bq, s) - 1
+    every = torch.arange(h)
+    for q0 in range(0, s, dq_bq):
+        q_last = min(q0 + dq_bq, s) - 1
         k_lo = max(0, q0 - win + 1) if win > 0 else 0
         k_hi = min(sk, q_last + 1) if causal else sk
-        t_lo = k_lo // bk
-        t_hi = -(-k_hi // bk) if k_hi > k_lo else t_lo
+        t_lo = k_lo // dq_bk
+        t_hi = -(-k_hi // dq_bk) if k_hi > k_lo else t_lo
         for kt in range(t_lo, t_hi):
-            qs, ks, kvh, _, ds = tile(bi, hh, q0, kt * bk)
-            dq[bi, qs, hh] += ds @ kf[bi, ks, kvh]
-    for bi, kvh, t in itertools.product(range(b), range(kvh_n),
-                                        range(-(-sk // bk))):
-        k0 = t * bk
-        k_last = min(k0 + bk, sk) - 1
+            qs, _, kr, _, ds = tile(every, q0, dq_bq, kt * dq_bk, dq_bk)
+            dq[:, :, qs] += mm(ds, kr, passes)
+            flops += b * h * dq_bq * dq_bk * 18 * hd
+    for k0 in range(0, sk, kv_bk):
+        k_last = min(k0 + kv_bk, sk) - 1
         q_lo = k0 if causal else 0
         q_hi = min(s, k_last + win) if win > 0 else s
-        t_lo = q_lo // bq
-        t_hi = -(-q_hi // bq) if q_hi > q_lo else t_lo
+        t_lo = q_lo // kv_bq
+        t_hi = -(-q_hi // kv_bq) if q_hi > q_lo else t_lo
         for gg, qt in itertools.product(range(grp), range(t_lo, t_hi)):
-            qs, ks, _, p, ds = tile(bi, kvh * grp + gg, qt * bq, k0)
-            dv[bi, ks, kvh] += p.T @ dof[bi, qs, kvh * grp + gg]
-            dk[bi, ks, kvh] += ds.T @ qf[bi, qs, kvh * grp + gg]
-    return dq, dk, dv
+            heads = torch.arange(kvh_n) * grp + gg    # one of each group
+            qs, ks, _, p, ds = tile(heads, qt * kv_bq, kv_bq, k0, kv_bk)
+            dv[:, :, ks] += mm(p.transpose(-1, -2), dof[:, heads, qs],
+                               passes)
+            dk[:, :, ks] += mm(ds.transpose(-1, -2), qf[:, heads, qs],
+                               passes)
+            flops += b * kvh_n * kv_bq * kv_bk * (12 * col_passes + 12) * hd
+    return (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+            dv.permute(0, 2, 1, 3), flops)
 
 
 SCHEDULES = [  # (s, sk, heads, kv, hd, causal, window)
@@ -278,13 +300,11 @@ SCHEDULES = [  # (s, sk, heads, kv, hd, causal, window)
     (200, 200, 4, 2, 16, True, 65),     # windows on the tile edges: the
     (200, 200, 4, 1, 16, False, 66),    # first and last tile each keeps one
     (150, 40, 4, 1, 16, True, 30),      # rows that keep no key
-    (100, 100, 2, 1, 144, True, 33),    # 32-key tiles above hd 128
+    (100, 100, 2, 1, 144, True, 33),    # 16-row tiles above hd 128
 ]
 
 
-@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES)
-def test_kernel_tile_schedule_matches_plain(s, sk, h, kv, hd, causal,
-                                            window):
+def _f32_inputs(s, sk, h, kv, hd, causal, window):
     rng = np.random.default_rng(s + sk + h + hd)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape,
                                                         dtype=np.float32))
@@ -292,13 +312,101 @@ def test_kernel_tile_schedule_matches_plain(s, sk, h, kv, hd, causal,
                                  (1, sk, kv, hd), (1, s, h, hd)))
     out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                              window=window)
-    want = tfa.flash_attention_bwd_plain(q, k, v, do, out, lse,
-                                         causal=causal, window=window)
-    got = emulate_bwd_tiles(q, k, v, do, out, lse, causal=causal,
-                            window=window)
+    return q, k, v, do, out, lse
+
+
+@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES)
+def test_kernel_tile_schedule_matches_plain(s, sk, h, kv, hd, causal,
+                                            window):
+    """The float32 kernels' schedule and 3xTF32 rounding hold every
+    gradient within 1e-4 of the plain version, and issue the flops that
+    ``bwd_issued_flops`` counts for float32."""
+    args = _f32_inputs(s, sk, h, kv, hd, causal, window)
+    want = tfa.flash_attention_bwd_plain(*args, causal=causal, window=window)
+    *got, flops = emulate_bwd_tf32_tiles(*args, causal=causal, window=window)
     for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD,
-                                   rtol=GRAD)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD, rtol=0)
+    assert flops == tfa.bwd_issued_flops(s, sk, h, kv, hd, causal=causal,
+                                         window=window, dtype=torch.float32)
+
+
+SCHEDULES_TF32 = [  # (s, sk, heads, kv, hd, causal, window)
+    (200, 200, 8, 2, 80, True, 64),     # GQA 4; dQ's 32-key and dK/dV's
+    (200, 200, 4, 1, 80, False, 33),    # 16-query tiles, windows on edges
+    (150, 40, 4, 2, 80, True, 30),      # rows that keep no key
+    (130, 130, 4, 2, 64, False, 33),    # dK/dV's 32-query tiles at hd 64
+    (100, 100, 4, 1, 256, True, 17),    # 16-row tiles, two dK/dV passes
+]
+
+
+def test_bwd_tf32_tiles():
+    """The float32 kernels' tiles: the streamed tile (dQ's keys, dK/dV's
+    queries) 32, or 16 (dQ above hd 128, dK/dV above hd 64), so that the
+    float32 tiles fit 227 KB and the registers do not spill; two dK/dV
+    column passes above hd 128."""
+    for hd in range(16, 257, 16):
+        t = tfa.bwd_tiles(hd, torch.float32)
+        dq = 32 if hd <= 128 else 16
+        dkdv = 32 if hd <= 64 else 16
+        assert (t["dq"], t["dkdv"]) == ((64, dq), (64, dkdv)), hd
+        assert -(-hd // t["columns_per_pass"]) == (1 if hd <= 128 else 2)
+
+
+@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES_TF32)
+def test_bwd_tf32_schedule_at_its_tile_edges(s, sk, h, kv, hd, causal,
+                                             window):
+    """The replay at the float32 kernels' own tile edges, every gradient
+    within 1e-4 of the plain version (a row that keeps no key gets no
+    gradient from either)."""
+    args = _f32_inputs(s, sk, h, kv, hd, causal, window)
+    want = tfa.flash_attention_bwd_plain(*args, causal=causal, window=window)
+    *got, flops = emulate_bwd_tf32_tiles(*args, causal=causal, window=window)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=GRAD, rtol=0)
+    if window is not None and s >= sk + window:
+        assert (got[0][:, sk + window - 1:] == 0).all()
+    assert flops == tfa.bwd_issued_flops(s, sk, h, kv, hd, causal=causal,
+                                         window=window, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("g,mask,hd", [(1, (True, None), 16),
+                                       (4, (True, 24), 80),
+                                       (2, (False, 24), 80),
+                                       (4, (False, None), 16)],
+                         ids=["g1-causal-hd16", "g4-causal-swa24-hd80",
+                              "g2-bidir-swa24-hd80", "g4-bidir-hd16"])
+def test_bwd_tf32_replay_matches_the_reference(g, mask, hd):
+    """The replay against ``jax.vjp`` of the reference's dense oracle in
+    float32 on the same inputs and cotangent, from the plain forward's
+    out and lse, every gradient within 1e-4."""
+    causal, window = mask
+    q, k, v, do = _torch(inputs(g, hd, "float32"), "float32")
+    out, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                             window=window)
+    *got, _ = emulate_bwd_tf32_tiles(q, k, v, do, out, lse, causal=causal,
+                                     window=window)
+    want = reference("dense", g, hd, causal, window, "float32")[1:]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), b, atol=GRAD, rtol=0,
+                                   err_msg=name)
+
+
+def test_bwd_one_tf32_pass_misses_the_limit():
+    """The control: the replay with one TF32 pass a product misses the
+    1e-4 limit that 3xTF32 keeps, at an h2o-danube-like head (hd 80, GQA
+    4) cut small.  Prints both errors (``pytest -s``)."""
+    args = _f32_inputs(256, 256, 8, 2, 80, True, 128)
+    want = tfa.flash_attention_bwd_plain(*args, causal=True, window=128)
+    errs = {}
+    for passes in (3, 1):
+        got = emulate_bwd_tf32_tiles(*args, causal=True, window=128,
+                                     passes=passes)[:3]
+        errs[passes] = [float((a - b).abs().max())
+                        for a, b in zip(got, want)]
+    print(f"max |err| (dq, dk, dv) against the plain version: 3xTF32 "
+          f"{errs[3]}, one TF32 pass {errs[1]}")
+    assert max(errs[3]) < GRAD
+    assert min(errs[1]) > GRAD
 
 
 # ------------------------------------ the bfloat16 kernels' schedule ----

@@ -1,5 +1,5 @@
-"""The bfloat16 flash-attention forward kernel's schedule and rounding,
-replayed on the CPU.
+"""The flash-attention forward kernels' schedules and rounding, replayed
+on the CPU.
 
 ``csrc/flash_attention_mma.cu`` runs on the tensor cores and cannot run
 here, so ``emulate_fwd_mma_tiles`` replays it in float32 torch: the same
@@ -15,8 +15,17 @@ the wrapper runs on a CPU tensor) within the port's bf16 limit 1e-4 +
 1e-4, and its count of issued flops against ``fwd_issued_flops``.  One
 case holds it against the reference's dense attention
 (``repro.models.attention.dense_attention``) at the reference suite's
-bf16 tolerance, 0.06.  The kernel itself is held against the plain
-version on the card in ``test_torch_cuda.py``.
+bf16 tolerance, 0.06.
+
+The float32 kernel, ``csrc/flash_attention_tf32.cu``, is replayed by
+``emulate_fwd_tf32_tiles``: its own tiles (``fwd_tiles(hd, float32)``),
+the same tile ranges and online softmax, and both products in 3xTF32
+with ``cvt.rna`` emulated bit for bit (``tests/tf32_ref.py``).  It is
+held within the port's float32 limits (out 2e-5, lse 1e-4) of the plain
+version and of the reference's ``dense_attention`` in float32, and the
+one-pass TF32 replay is the control those limits must refuse.  The
+kernels themselves are held against the plain version on the card in
+``test_torch_cuda.py``.
 """
 import math
 import re
@@ -30,9 +39,11 @@ from repro.models import attention as rattn
 from repro_torch.core.online_softmax import NEG_INF, attention_mask
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
+from tf32_ref import mm, tf32_rna
 
 BF16_ATOL, BF16_RTOL = 1e-4, 2.0 ** -6
 LSE_TOL = 1e-4
+F32_OUT_TOL = 2e-5
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 
@@ -223,17 +234,166 @@ def test_fwd_issued_flops_at_the_prefill_shape():
     assert 6 * 80 < issued / kept < 1.05 * 6 * 80
 
 
+# ----------------------------------------------- the float32 kernel ----
+def emulate_fwd_tf32_tiles(q, k, v, *, causal, window, passes=3):
+    """Replay the float32 forward kernel in float32 torch, every (batch,
+    head) at once: its 64-query tiles over the key tiles of ``fwd_tiles(hd,
+    float32)`` in its tile ranges, both products 3xTF32 (``passes=1``: one
+    TF32 pass), the online softmax per key tile with m in log2 units, l
+    the sum of the float32 p.  Returns ``(out, lse, issued_flops)``, the
+    flops counted over every pair of every tile run, as the kernel issues
+    them."""
+    b, s, h, hd = q.shape
+    sk, kvh_n = k.shape[1], k.shape[2]
+    grp = h // kvh_n
+    bq, bk = tfa.fwd_tiles(hd, torch.float32)
+    c = _f32(1.0 / math.sqrt(hd)) * _f32(LOG2E)    # the kernel's scale_log2
+    neg = _f32(NEG_INF)
+    qf = q.float().permute(0, 2, 1, 3)                        # (b, h, s, hd)
+    kf, vf = (x.float().repeat_interleave(grp, dim=2).permute(0, 2, 1, 3)
+              for x in (k, v))
+    out = torch.empty(b, h, s, hd)
+    lse = torch.empty(b, h, s)
+    flops = 0
+    for q0 in range(0, s, bq):
+        rows = slice(q0, min(q0 + bq, s))
+        qpos = torch.arange(s)[rows]
+        m = torch.full((b, h, len(qpos)), NEG_INF)
+        l = torch.zeros((b, h, len(qpos)))
+        acc = torch.zeros((b, h, len(qpos), hd))
+        for t in range(*tfa.fwd_key_tile_range(q0, s, sk, bq, bk,
+                                               causal=causal,
+                                               window=window)):
+            ks = slice(t * bk, min(t * bk + bk, sk))   # keys past Sk: none
+            sc = mm(qf[:, :, rows], kf[:, :, ks].transpose(-1, -2), passes)
+            ok = attention_mask(qpos, torch.arange(sk)[ks], causal=causal,
+                                window=window)
+            mx = torch.where(ok, sc, -torch.inf).amax(-1)
+            m_new = torch.maximum(m, mx * c)
+            corr = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(sc * c - m_new[..., None]),
+                            torch.exp2(neg - m_new)[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + mm(p, vf[:, :, ks], passes)
+            m = m_new
+            flops += b * h * bq * bk * 4 * passes * hd
+        l = torch.clamp(l, min=1e-30)
+        out[:, :, rows] = acc / l[..., None]
+        lse[:, :, rows] = torch.where(m == neg, neg, m * _f32(LN2)) \
+            + torch.log(l)
+    return out.permute(0, 2, 1, 3), lse, flops
+
+
+def f32_qkv(s, sk, h, kv, hd, b=1):
+    rng = np.random.default_rng(7 * s + sk + 3 * h + kv + hd)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for shape in ((b, s, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+
+
+SCHEDULES_TF32 = [  # (s, sk, heads, kv, hd, causal, window)
+    (193, 193, 4, 1, 16, True, None),   # ragged last query and key tiles
+    (200, 200, 8, 2, 80, True, 64),     # GQA 4, a window on the 64-key edge
+    (200, 200, 4, 1, 80, False, 47),    # a warp's 16 rows on a window edge
+    (150, 40, 4, 1, 16, True, 30),      # rows that keep no key
+    (130, 130, 4, 4, 96, True, 32),     # 32-key tiles above hd 80
+    (100, 100, 4, 2, 256, False, 33),
+]
+
+
+def test_fwd_tf32_rounding_is_cvt_rna():
+    """The replay's TF32 rounding: to nearest, ties away from zero, at 10
+    mantissa bits, on both signs and across a binade."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 1.5 * ulp, 2 - ulp / 4, 3.0e-3, 0.0])
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 2.0,
+                         3.0e-3, 0.0])
+    got = tf32_rna(x)
+    assert torch.equal(got[:5], want[:5]) and got[6] == 0
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert abs(float(got[5]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+
+@pytest.mark.parametrize("s,sk,h,kv,hd,causal,window", SCHEDULES_TF32)
+def test_fwd_tf32_schedule_matches_plain(s, sk, h, kv, hd, causal, window):
+    """The float32 kernel's schedule and 3xTF32 rounding hold out within
+    2e-5 and lse within 1e-4 of the plain version, and issue the flops
+    that ``fwd_issued_flops`` counts for float32."""
+    q, k, v = f32_qkv(s, sk, h, kv, hd)
+    want, want_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                   window=window)
+    got, lse, flops = emulate_fwd_tf32_tiles(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(got, want, atol=F32_OUT_TOL, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL, rtol=0)
+    assert flops == tfa.fwd_issued_flops(s, sk, h, kv, hd, causal=causal,
+                                         window=window, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("s,h,kv,hd,causal,window", [
+    (200, 8, 2, 80, True, 64), (256, 4, 4, 16, False, None),
+    (100, 4, 1, 256, True, 33)])
+def test_fwd_tf32_replay_matches_the_reference(s, h, kv, hd, causal,
+                                               window):
+    """The replay against the reference's dense oracle in float32 on the
+    same inputs, at the port's float32 limit 2e-5."""
+    q, k, v = f32_qkv(s, s, h, kv, hd, b=2)
+    got, _, _ = emulate_fwd_tf32_tiles(q, k, v, causal=causal, window=window)
+    want = rattn.dense_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                 causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=F32_OUT_TOL, rtol=0)
+
+
+def test_fwd_one_tf32_pass_misses_the_limit():
+    """The control: the same replay with one TF32 pass a product (10
+    mantissa bits an operand) misses the 2e-5 limit on out that 3xTF32
+    keeps, at an h2o-danube-like head (hd 80, GQA 4) cut small.  Prints
+    both errors (``pytest -s``)."""
+    q, k, v = f32_qkv(256, 256, 8, 2, 80)
+    want, want_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                                   window=128)
+    errs = {}
+    for passes in (3, 1):
+        got, lse, _ = emulate_fwd_tf32_tiles(q, k, v, causal=True,
+                                             window=128, passes=passes)
+        errs[passes] = (float((got - want).abs().max()),
+                        float((lse - want_lse).abs().max()))
+    print(f"max |err| (out, lse) against the plain version: 3xTF32 "
+          f"{errs[3]}, one TF32 pass {errs[1]}")
+    assert errs[3][0] < F32_OUT_TOL and errs[3][1] < LSE_TOL
+    assert errs[1][0] > F32_OUT_TOL
+
+
+def test_fwd_tf32_issued_flops_at_the_prefill_shape():
+    """At h2o-danube-1.8b's layer (S 8192, H 32, KV 8, hd 80, window 4096)
+    the float32 kernel issues 12·hd flops per computed pair on the same
+    64 × 64 tiles as the bfloat16 one: twice its count."""
+    args = (8192, 8192, 32, 8, 80)
+    issued = tfa.fwd_issued_flops(*args, causal=True, window=4096,
+                                  dtype=torch.float32)
+    kept = 25167872 * 32
+    assert tfa.fwd_tiles(80, torch.float32) == tfa.fwd_tiles(80)
+    assert 12 * 80 < issued / kept < 1.02 * 12 * 80
+    assert issued == 2 * tfa.fwd_issued_flops(*args, causal=True,
+                                              window=4096)
+    for hd in range(16, 257, 16):
+        assert tfa.fwd_tiles(hd, torch.float32) == (64, 64 if hd <= 80
+                                                    else 32), hd
+
+
 # ------------------------------------------------------------ the wrapper ----
 def test_fwd_dispatch_by_dtype_without_building():
-    """CUDA bf16 inputs go to the tensor-core source, float32 to the FMA
-    source; both C entry points take the same arguments (read from the
-    sources, nothing built).  CPU tensors of either dtype take the plain
-    version: no launch, no copy."""
+    """CUDA bf16 inputs go to the bf16 tensor-core source, float32 to the
+    3xTF32 source; both C entry points take the same arguments (read from
+    the sources, nothing built).  CPU tensors of either dtype take the
+    plain version: no launch, no copy."""
     routes = tfa._FWD_ROUTES
     assert set(routes) == {torch.bfloat16, torch.float32}
     assert routes[torch.bfloat16][:2] == ("flash_attention_mma",
                                           "flash_fwd_mma")
-    assert routes[torch.float32][:2] == ("flash_attention", "flash_fwd")
+    assert routes[torch.float32][:2] == ("flash_attention_tf32",
+                                         "flash_fwd_tf32")
     signatures = set()
     for lib, entry, errors in routes.values():
         src = (_build.CSRC / _build.SOURCES[lib]).read_text()
