@@ -84,6 +84,7 @@ from repro_torch.core.planner import (COL_ALIGN, KERNEL_THREADS_3D,
                                       plan as make_plan,
                                       planes_per_barrier, smem_bytes_2d,
                                       smem_bytes_3d)
+from repro_torch.core.spans import span
 from repro_torch.core.stencil_spec import (StencilSpec, lift_2d_to_3d,
                                            validate_spec)
 from repro_torch.kernels.stencil2d import (ebisu2d_padded, padded_shape_2d,
@@ -496,14 +497,11 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
     runs.  A field with a leading batch axis keeps it through every step
     (each buffer gains it, so each sweep is one launch for the batch).
     """
-    boundary.validate_for(spec, t=depth)
-    groups = _grouped(sweep_schedule(total_t, depth))
     repin = boundary.kind in ("periodic", "reflect", "neumann")
     s = tap_sum(spec.taps)
     affine = (boundary.kind == "dirichlet" and boundary.value != 0.0
               and abs(s - 1.0) > 1e-6)
     shift = boundary.value if boundary.kind == "dirichlet" else 0.0
-    itemsize = torch.empty((), dtype=compute_dtype).element_size()
 
     def halo_of(d: int) -> int:
         return spec.halo(d) if repin else 0
@@ -511,11 +509,15 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
     def ext(d: int) -> tuple[int, ...]:
         return tuple(n + 2 * halo_of(d) for n in shape)
 
-    launches = {}
-    for d, _ in groups:
-        kshape, index = kernel_view(spec, kernel_spec, ext(d))
-        launches[d] = (*_sweep_launch(kernel_spec, d, kshape, hw, itemsize,
-                                      plan), index)
+    with span("repro_torch.chain.build"):
+        boundary.validate_for(spec, t=depth)
+        groups = _grouped(sweep_schedule(total_t, depth))
+        itemsize = torch.empty((), dtype=compute_dtype).element_size()
+        launches = {}
+        for d, _ in groups:
+            kshape, index = kernel_view(spec, kernel_spec, ext(d))
+            launches[d] = (*_sweep_launch(kernel_spec, d, kshape, hw,
+                                          itemsize, plan), index)
 
     def chain(v: torch.Tensor) -> torch.Tensor:
         lead = tuple(v.shape[:v.dim() - spec.ndim])      # the batch axis
@@ -524,9 +526,12 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
             index = (Ellipsis, *index)
             halo = halo_of(d)
             crop = (Ellipsis, *(slice(halo, halo + n) for n in shape))
-            xp = torch.zeros(lead + padded, dtype=compute_dtype,
-                             device=v.device)
-            buf = torch.empty_like(xp)
+            with span("repro_torch.chain.pad"):
+                xp = torch.zeros(lead + padded, dtype=compute_dtype,
+                                 device=v.device)
+                buf = torch.empty_like(xp)
+                if not (repin or affine):
+                    xp[index] = v
             if repin or affine:
                 for _ in range(count):
                     w = v - shift if affine else v
@@ -539,7 +544,6 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
                     if affine:
                         v = v + shift * s ** d
             else:
-                xp[index] = v
                 for _ in range(count):
                     sweep(xp, out=buf)
                     xp, buf = buf, xp
@@ -548,10 +552,16 @@ def _build_chain(spec: StencilSpec, shape: tuple[int, ...],
 
     if boundary.kind == "dirichlet" and boundary.value != 0.0 and not affine:
         def run(x):
-            return (chain(x.to(compute_dtype) - shift) + shift).to(dtype)
+            with span("repro_torch.chain.run"):
+                v = chain(x.to(compute_dtype) - shift)
+                with span("repro_torch.chain.crop"):
+                    return (v + shift).to(dtype)
     else:
         def run(x):
-            return chain(x.to(compute_dtype)).to(dtype).contiguous()
+            with span("repro_torch.chain.run"):
+                v = chain(x.to(compute_dtype))
+                with span("repro_torch.chain.crop"):
+                    return v.to(dtype).contiguous()
     return run
 
 

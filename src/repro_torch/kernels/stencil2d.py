@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core.planner import (COL_ALIGN, THREADS, _pad_to,
                                       axis_reach, rows_per_thread_2d)
+from repro_torch.core.spans import span
 from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.kernels import _build, stencil2d_gen
 from repro_torch.kernels.taps import engine_for, split_star
@@ -187,20 +188,22 @@ def ebisu2d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
     into ``out`` when given (it must not alias ``xp``).  CUDA tensors go
     to the kernel, CPU tensors to the plain version."""
     bh, bw, _ = strip_geometry(spec, t, bh, bw)
-    _check_padded(xp, spec, t, height, width, bh, bw)
-    if out is None:
-        out = torch.empty_like(xp)
-    elif (out.shape != xp.shape or out.dtype != xp.dtype
-          or out.device != xp.device):
-        raise ValueError("out must match xp in shape, dtype and device")
-    if xp.device.type == "cpu":
-        out.copy_(ebisu2d_padded_plain(xp, spec, t, height=height,
-                                       width=width))
-        return out
-    if xp.device.type != "cuda":
-        raise ValueError(f"ebisu2d_padded runs on cuda or cpu tensors, got "
-                         f"{xp.device}")
-    _launch(xp, out, spec, t, height, width, bh, bw)
+    with span("repro_torch.launch.stencil2d t={} tile={}x{} batch={}", t, bh,
+              bw, xp.shape[0] if xp.dim() == 3 else 1):
+        _check_padded(xp, spec, t, height, width, bh, bw)
+        if out is None:
+            out = torch.empty_like(xp)
+        elif (out.shape != xp.shape or out.dtype != xp.dtype
+              or out.device != xp.device):
+            raise ValueError("out must match xp in shape, dtype and device")
+        if xp.device.type == "cpu":
+            out.copy_(ebisu2d_padded_plain(xp, spec, t, height=height,
+                                           width=width))
+            return out
+        if xp.device.type != "cuda":
+            raise ValueError(f"ebisu2d_padded runs on cuda or cpu tensors, "
+                             f"got {xp.device}")
+        _launch(xp, out, spec, t, height, width, bh, bw)
     _build.count_launch(ebisu2d_padded)
     return out
 

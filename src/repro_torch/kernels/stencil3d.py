@@ -43,6 +43,7 @@ from repro_torch.core.planner import (_pad_to, budget_planes_3d,
                                       kernel_smem_bytes_3d,
                                       kernel_threads_3d, level_regions_3d,
                                       ring_extents_3d, smem_bytes_3d)
+from repro_torch.core.spans import span
 from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.kernels import _build, stencil3d_gen
 from repro_torch.kernels.taps import engine_for, split_star
@@ -189,22 +190,24 @@ def ebisu3d_padded(xp: torch.Tensor, spec: StencilSpec, t: int, *,
                          "takes 3-D stencils (lift a 2-D one with "
                          "lift_2d_to_3d)")
     shape = (zdim, ydim, xdim)
-    geom = launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
-                              itemsize=xp.element_size())
-    _check_padded(xp, shape, geom)
-    if out is None:
-        out = torch.empty_like(xp)
-    elif (out.shape != xp.shape or out.dtype != xp.dtype
-          or out.device != xp.device):
-        raise ValueError("out must match xp in shape, dtype and device")
-    if xp.device.type == "cpu":
-        out.copy_(ebisu3d_padded_plain(xp, spec, t, zdim=zdim, ydim=ydim,
-                                       xdim=xdim))
-        return out
-    if xp.device.type != "cuda":
-        raise ValueError(f"ebisu3d_padded runs on cuda or cpu tensors, got "
-                         f"{xp.device}")
-    _launch(xp, out, spec, t, shape, geom)
+    with span("repro_torch.launch.stencil3d t={} tile={}x{}x{} batch={}", t,
+              zc, ty, tx, xp.shape[0] if xp.dim() == 4 else 1):
+        geom = launch_geometry_3d(spec, t, shape, zc=zc, ty=ty, tx=tx,
+                                  itemsize=xp.element_size())
+        _check_padded(xp, shape, geom)
+        if out is None:
+            out = torch.empty_like(xp)
+        elif (out.shape != xp.shape or out.dtype != xp.dtype
+              or out.device != xp.device):
+            raise ValueError("out must match xp in shape, dtype and device")
+        if xp.device.type == "cpu":
+            out.copy_(ebisu3d_padded_plain(xp, spec, t, zdim=zdim,
+                                           ydim=ydim, xdim=xdim))
+            return out
+        if xp.device.type != "cuda":
+            raise ValueError(f"ebisu3d_padded runs on cuda or cpu tensors, "
+                             f"got {xp.device}")
+        _launch(xp, out, spec, t, shape, geom)
     _build.count_launch(ebisu3d_padded)
     return out
 

@@ -81,10 +81,48 @@ Synchronous/simulated use (the soak test and CLI driver):
     tk = core.submit(ServeRequest(spec, x, total_t=8))
     core.drain()                  # advances the sim clock past windows
     y = tk.result()               # value, or raises the typed error
+
+Where a request's time goes.  Each ticket is stamped on the service
+clock at admission (``admitted_ms``), at the start of the dispatch that
+runs it (``dispatched_ms``) and at resolution (``latency_ms`` after
+admission).  ``counters["dispatched"]`` counts the requests handed to a
+dispatch, once however the ladder splits them, and
+``counters["queue_wait_ms"]`` sums their waits from admission to that
+dispatch's start: the mean wait in a bucket, and behind other buckets'
+dispatches, is their quotient.  ``stats()``'s latency percentiles
+cover the most recent :data:`LATENCY_WINDOW` resolutions;
+``stats()["resolved"]`` and the rate count every one.  Under
+``torch.profiler`` the core opens spans (``core/spans.py``; nothing is
+recorded, and next to nothing paid, without a profiler):
+
+  * ``repro_torch.serve.admit`` -- a submission: admission checks and
+    the program lookup (``compile_stencil``);
+  * ``repro_torch.serve.form`` -- batch formation under the lock, with
+    the expiries it resolves;
+  * ``repro_torch.serve.dispatch`` -- one batch down the ladder, end to
+    end; inside it ``repro_torch.serve.stack`` (the fields moved and
+    stacked with their pad rows), the program's ``repro_torch.chain.*``
+    and ``repro_torch.launch.*`` spans, ``repro_torch.serve.guard`` (the
+    finiteness check), ``repro_torch.serve.sync`` (reading its verdict
+    alone: the host blocked on the card) and
+    ``repro_torch.serve.resolve`` (the tickets resolved, their
+    ``on_done`` callbacks included);
+  * ``repro_torch.serve.solo`` -- an unbatched ``.run`` rung, or the
+    guard's ``retry_solo`` re-run; ``repro_torch.serve.backoff`` -- a
+    retry's wait.
+
+Capture them with the card's operations on one clock::
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as p:
+        while core.pending():
+            core.pump()
+    p.export_chrome_trace("serve.json")
 """
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import itertools
@@ -98,11 +136,13 @@ import torch
 
 from repro_torch.api.boundary import ZERO, Boundary
 from repro_torch.api.program import RUNNER_CACHE, compile_stencil
+from repro_torch.core.spans import span
 from repro_torch.core.stencil_spec import StencilSpec
 from repro_torch.faults import (FaultInjector, MonotonicClock, SimClock,
                                 TransientFault)
 
 GUARDS = ("reject", "propagate", "retry_solo")
+LATENCY_WINDOW = 4096        # resolutions ``stats()``'s percentiles cover
 
 
 # ============================================================ typed errors ==
@@ -186,6 +226,7 @@ class Ticket:
         self.error: ServeError | None = None
         self.done = False
         self.latency_ms: float | None = None
+        self.dispatched_ms: float | None = None  # its dispatch's start
         self.batched_width: int | None = None   # how it was dispatched
         self._on_done = on_done
 
@@ -317,7 +358,8 @@ class ServiceCore:
         self._programs: dict = {}           # key -> (program, total_t)
         self._tenant_inflight: Counter = Counter()
         self.counters: Counter = Counter()
-        self._latencies_ms: list = []
+        self._latencies_ms = collections.deque(maxlen=LATENCY_WINDOW)
+        self._resolved = 0
         self._first_admit_ms: float | None = None
         self._last_resolve_ms: float | None = None
 
@@ -330,28 +372,29 @@ class ServiceCore:
         """Admit (or refuse) one request.  Always returns a ticket; an
         admission refusal resolves it immediately with the typed error,
         so the caller never blocks on a request that was never queued."""
-        now = self.clock.now_ms()
-        if (request.deadline_ms is None
-                and self.config.default_deadline_ms is not None):
-            request = dataclasses.replace(
-                request, deadline_ms=self.config.default_deadline_ms)
-        tk = Ticket(request, now, on_done)
-        err = self._admission_error(request, now)
-        if err is not None:
-            self._resolve(tk, error=err, count_admit=False)
+        with span("repro_torch.serve.admit"):
+            now = self.clock.now_ms()
+            if (request.deadline_ms is None
+                    and self.config.default_deadline_ms is not None):
+                request = dataclasses.replace(
+                    request, deadline_ms=self.config.default_deadline_ms)
+            tk = Ticket(request, now, on_done)
+            err = self._admission_error(request, now)
+            if err is not None:
+                self._resolve(tk, error=err, count_admit=False)
+                return tk
+            key, prog = self._program_for(request)
+            if isinstance(prog, ServeError):
+                self._resolve(tk, error=prog, count_admit=False)
+                return tk
+            with self._lock:
+                self.counters["admitted"] += 1
+                self._tenant_inflight[request.tenant] += 1
+                if self._first_admit_ms is None:
+                    self._first_admit_ms = now
+                self._programs[key] = (prog, request.total_t)
+                self._buckets.setdefault(key, []).append(tk)
             return tk
-        key, prog = self._program_for(request)
-        if isinstance(prog, ServeError):
-            self._resolve(tk, error=prog, count_admit=False)
-            return tk
-        with self._lock:
-            self.counters["admitted"] += 1
-            self._tenant_inflight[request.tenant] += 1
-            if self._first_admit_ms is None:
-                self._first_admit_ms = now
-            self._programs[key] = (prog, request.total_t)
-            self._buckets.setdefault(key, []).append(tk)
-        return tk
 
     def _admission_error(self, request: ServeRequest,
                          now: float) -> ServeError | None:
@@ -441,36 +484,37 @@ class ServiceCore:
         tenant starves behind another tenant's burst.  Expired requests
         are resolved ``Expired('batch_formation')`` here — dropped from
         the batch instead of dispatched."""
-        now = self.clock.now_ms()
-        cfg = self.config
+        with span("repro_torch.serve.form"):
+            now = self.clock.now_ms()
+            cfg = self.config
 
-        def due(tickets) -> bool:
-            return bool(tickets) and (
-                force or len(tickets) >= cfg.max_batch
-                or now - min(tk.admitted_ms for tk in tickets)
-                >= cfg.batch_window_ms)
+            def due(tickets) -> bool:
+                return bool(tickets) and (
+                    force or len(tickets) >= cfg.max_batch
+                    or now - min(tk.admitted_ms for tk in tickets)
+                    >= cfg.batch_window_ms)
 
-        batches, expired = [], []
-        with self._lock:
-            for key, tickets in self._buckets.items():
-                prog, total_t = self._programs[key]
-                while due(tickets):
-                    ordered = self._round_robin(tickets)
-                    taken, tickets[:] = (ordered[:cfg.max_batch],
-                                         ordered[cfg.max_batch:])
-                    if len({tk.request.tenant for tk in taken}) > 1:
-                        self.counters["multi_tenant_batches"] += 1
-                    live = []
-                    for tk in taken:
-                        (expired if tk.expired(now) else live).append(tk)
-                    if live:
-                        batches.append(_Batch(prog, total_t, live))
-            for key in [k for k, v in self._buckets.items() if not v]:
-                del self._buckets[key]
-        for tk in expired:
-            self._count("expired_batch_formation")
-            self._resolve(tk, error=Expired("batch_formation"))
-        return batches
+            batches, expired = [], []
+            with self._lock:
+                for key, tickets in self._buckets.items():
+                    prog, total_t = self._programs[key]
+                    while due(tickets):
+                        ordered = self._round_robin(tickets)
+                        taken, tickets[:] = (ordered[:cfg.max_batch],
+                                             ordered[cfg.max_batch:])
+                        if len({tk.request.tenant for tk in taken}) > 1:
+                            self.counters["multi_tenant_batches"] += 1
+                        live = []
+                        for tk in taken:
+                            (expired if tk.expired(now) else live).append(tk)
+                        if live:
+                            batches.append(_Batch(prog, total_t, live))
+                for key in [k for k, v in self._buckets.items() if not v]:
+                    del self._buckets[key]
+            for tk in expired:
+                self._count("expired_batch_formation")
+                self._resolve(tk, error=Expired("batch_formation"))
+            return batches
 
     def pending(self) -> int:
         with self._lock:
@@ -481,15 +525,23 @@ class ServiceCore:
         """Run one formed batch down the ladder, with the program's card
         as the thread's current device.  Defensive outer rim: whatever
         happens inside, every ticket resolves."""
-        try:
-            self._count("batches")
-            with _on_device(batch.program.device):
-                self._ladder(batch.program, batch.total_t, batch.tickets)
-        except Exception as e:  # noqa: BLE001 — the no-hang guarantee
-            for tk in batch.tickets:
-                if not tk.done:
-                    self._resolve(tk, error=ServiceFault(
-                        f"internal dispatch error: {e!r}"))
+        with span("repro_torch.serve.dispatch"):
+            try:
+                now = self.clock.now_ms()
+                with self._lock:
+                    self.counters["batches"] += 1
+                    self.counters["dispatched"] += len(batch.tickets)
+                    for tk in batch.tickets:
+                        tk.dispatched_ms = now
+                        self.counters["queue_wait_ms"] += now - tk.admitted_ms
+                with _on_device(batch.program.device):
+                    self._ladder(batch.program, batch.total_t,
+                                 batch.tickets)
+            except Exception as e:  # noqa: BLE001 — the no-hang guarantee
+                for tk in batch.tickets:
+                    if not tk.done:
+                        self._resolve(tk, error=ServiceFault(
+                            f"internal dispatch error: {e!r}"))
 
     def pump(self) -> int:
         """poll + dispatch inline (the synchronous driver loop); returns
@@ -529,12 +581,16 @@ class ServiceCore:
         # is finite iff its min and max are (both propagate NaN): one
         # read of the rows, where ``isfinite(...).all`` also writes and
         # re-reads a mask as large as a quarter of them
-        lo, hi = torch.aminmax(ys[:len(tickets)].reshape(len(tickets), -1),
-                               dim=1)
-        finite = (lo.isfinite() & hi.isfinite()).tolist()
-        for i, tk in enumerate(tickets):
-            self._guard_resolve(tk, ys[i], prog, total_t,
-                                width=len(tickets), finite=finite[i])
+        with span("repro_torch.serve.guard"):
+            lo, hi = torch.aminmax(
+                ys[:len(tickets)].reshape(len(tickets), -1), dim=1)
+            finite = lo.isfinite() & hi.isfinite()
+        with span("repro_torch.serve.sync"):
+            finite = finite.tolist()
+        with span("repro_torch.serve.resolve"):
+            for i, tk in enumerate(tickets):
+                self._guard_resolve(tk, ys[i], prog, total_t,
+                                    width=len(tickets), finite=finite[i])
 
     def _attempt_batched(self, prog, total_t: int, tickets: list):
         """One ladder rung: the padded batched dispatch with bounded
@@ -544,9 +600,10 @@ class ServiceCore:
                      if w >= len(tickets))
         pad = width - len(tickets)
         self._count("pad_rows", pad)
-        rows = [_field(tk.request.x, prog.device) for tk in tickets]
-        xs = torch.stack(rows + rows[:1] * pad)
-        evict_mark = RUNNER_CACHE.stats()["evictions"]
+        with span("repro_torch.serve.stack"):
+            rows = [_field(tk.request.x, prog.device) for tk in tickets]
+            xs = torch.stack(rows + rows[:1] * pad)
+        evict_mark = RUNNER_CACHE.evictions
         for attempt in range(self.config.max_retries + 1):
             try:
                 self._inject_dispatch_faults(width)
@@ -562,7 +619,7 @@ class ServiceCore:
             except Exception as e:  # noqa: BLE001
                 # consume the cache eviction counters: a concurrent
                 # eviction between runner lookup and call is transient
-                now_evict = RUNNER_CACHE.stats()["evictions"]
+                now_evict = RUNNER_CACHE.evictions
                 if now_evict > evict_mark and attempt < self.config.max_retries:
                     evict_mark = now_evict
                     self._count("transient_evicted")
@@ -574,23 +631,25 @@ class ServiceCore:
     def _solo(self, prog, total_t: int, tk: Ticket) -> None:
         """Bottom compute rung: unbatched ``.run`` with bounded retries;
         a persistent failure resolves the typed :class:`ServiceFault`."""
-        self._count("solo_dispatches")
-        for attempt in range(self.config.max_retries + 1):
-            try:
-                self._inject_dispatch_faults(1)
-                y = prog.run(_field(tk.request.x, prog.device), total_t)
-                self._guard_resolve(tk, y, prog, total_t, width=1)
-                return
-            except TransientFault as e:
-                self._count(f"transient_{e.kind}")
-                self._backoff(attempt)
-            except Exception as e:  # noqa: BLE001
-                self._resolve(tk, error=ServiceFault(
-                    f"solo dispatch failed: {e}"))
-                return
-        self._resolve(tk, error=ServiceFault(
-            f"retries exhausted after {self.config.max_retries + 1} "
-            "transient failures"))
+        with span("repro_torch.serve.solo"):
+            self._count("solo_dispatches")
+            for attempt in range(self.config.max_retries + 1):
+                try:
+                    self._inject_dispatch_faults(1)
+                    y = prog.run(_field(tk.request.x, prog.device), total_t)
+                    with span("repro_torch.serve.resolve"):
+                        self._guard_resolve(tk, y, prog, total_t, width=1)
+                    return
+                except TransientFault as e:
+                    self._count(f"transient_{e.kind}")
+                    self._backoff(attempt)
+                except Exception as e:  # noqa: BLE001
+                    self._resolve(tk, error=ServiceFault(
+                        f"solo dispatch failed: {e}"))
+                    return
+            self._resolve(tk, error=ServiceFault(
+                f"retries exhausted after {self.config.max_retries + 1} "
+                "transient failures"))
 
     def _inject_dispatch_faults(self, width: int) -> None:
         if self.faults is None:
@@ -618,7 +677,8 @@ class ServiceCore:
         ms = (cfg.backoff_base_ms * cfg.backoff_factor ** attempt
               + self._jitter.uniform(0, cfg.backoff_jitter_ms))
         self._count("retries")
-        self.clock.advance(ms)
+        with span("repro_torch.serve.backoff"):
+            self.clock.advance(ms)
 
     # -------------------------------------------------- guard / resolve ----
     def _guard_resolve(self, tk: Ticket, y, prog, total_t: int, *,
@@ -636,7 +696,10 @@ class ServiceCore:
             self._resolve(tk, error=Expired("post_dispatch"))
             return
         if finite is None:
-            finite = bool(torch.isfinite(y).all())
+            with span("repro_torch.serve.guard"):
+                finite = torch.isfinite(y).all()
+            with span("repro_torch.serve.sync"):
+                finite = bool(finite)
         if finite:
             tk.batched_width = width
             self._resolve(tk, value=y)
@@ -654,7 +717,9 @@ class ServiceCore:
         else:                                  # retry_solo: isolate blame
             self._count("guard_solo_retries")
             try:
-                y2 = prog.run(_field(tk.request.x, prog.device), total_t)
+                with span("repro_torch.serve.solo"):
+                    y2 = prog.run(_field(tk.request.x, prog.device),
+                                  total_t)
             except Exception as e:  # noqa: BLE001
                 self._resolve(tk, error=ServiceFault(
                     f"guard solo retry failed: {e}"))
@@ -676,6 +741,7 @@ class ServiceCore:
             if count_admit:
                 self._tenant_inflight[tk.request.tenant] -= 1
                 self._latencies_ms.append(tk.latency_ms)
+                self._resolved += 1
                 self.counters["completed" if error is None
                               else "errored"] += 1
         if tk._on_done is not None:
@@ -684,13 +750,15 @@ class ServiceCore:
     # --------------------------------------------------------------- stats --
     def stats(self) -> dict:
         """The service's health report: outcome counters, latency
-        percentiles (service clock), throughput, cache and fault-injector
-        counters — the CLI driver prints this verbatim."""
+        percentiles (service clock) over the most recent
+        :data:`LATENCY_WINDOW` resolutions, throughput since the first
+        admission, cache and fault-injector counters —
+        ``launch/serve_stencil.py`` prints this verbatim."""
         with self._lock:
             lat = sorted(self._latencies_ms)
             out = dict(self.counters)
             out["pending"] = sum(len(b) for b in self._buckets.values())
-            out["resolved"] = len(lat)
+            out["resolved"] = self._resolved
             if lat:
                 out["p50_latency_ms"] = round(lat[len(lat) // 2], 3)
                 out["p99_latency_ms"] = round(
@@ -699,7 +767,7 @@ class ServiceCore:
                               - (self._first_admit_ms or 0))
                 if elapsed_ms > 0:
                     out["requests_per_sec"] = round(
-                        len(lat) / (elapsed_ms / 1e3), 2)
+                        self._resolved / (elapsed_ms / 1e3), 2)
             out["runner_cache"] = RUNNER_CACHE.stats()
             if self.faults is not None:
                 out["faults_injected"] = self.faults.stats()

@@ -223,6 +223,13 @@ def test_faulty_tape_outcomes_equal_the_reference():
     got, got_stats, tickets = _tape_outcomes((port_svc, launch, port_faults))
     want, want_stats, _ = _tape_outcomes((ref_svc, ref_launch, ref_faults))
     assert got == want
+    # the port's own counters, which the reference lacks, against the
+    # tickets' stamps: every admitted request dispatched once
+    dispatched = [tk for tk, _ in tickets if tk.dispatched_ms is not None]
+    assert got_stats.pop("dispatched") == len(dispatched) \
+        == got_stats["admitted"] - got_stats.get("expired_batch_formation", 0)
+    assert got_stats.pop("queue_wait_ms") == pytest.approx(
+        sum(tk.dispatched_ms - tk.admitted_ms for tk in dispatched))
     assert got_stats == want_stats
     # the tape exercised every rung and fault kind it was built for
     for k in ("transient_evicted", "transient_oom", "ladder_splits",
